@@ -1,0 +1,40 @@
+"""Index configuration — the IVF_PQ part of the reference's index surface.
+
+The other index types (IVF_FLAT, IVF_SQ, IVF_RQ, FLAT, HNSW, scalar and
+full-text indexes) wait for later slices (ROADMAP A6-A9, A12).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass
+class IvfPq:
+    """IVF + product-quantized residuals (reference IvfPqIndexBuilder)."""
+
+    distance_type: str = "l2"
+    num_partitions: int | None = None
+    num_sub_vectors: int | None = None  # default dim/16
+    num_bits: int = 8
+    sample_rate: int = 256
+    max_iterations: int = 50
+    seed: int = 0
+    # dtype of the one-time table upload for the build: bfloat16 halves
+    # the copy (the assignment product already runs in bf16 on the card);
+    # float32 keeps residual and codebook training at input precision.
+    # CPU builds always use float32, as the reference's do.
+    build_precision: str = "bfloat16"
+    # OPQ rotation: building one waits for a later slice (ROADMAP A3);
+    # searching an OPQ index that the reference built works
+    opq: bool = False
+    opq_iters: int = 8
+
+    index_type: str = "IVF_PQ"
+
+
+def default_num_partitions(num_rows: int) -> int:
+    """Reference default: √N (index/vector.rs:63-70)."""
+    import math
+
+    return max(1, round(math.sqrt(max(1, num_rows))))

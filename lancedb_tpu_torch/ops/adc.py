@@ -1,0 +1,168 @@
+"""Fused IVF_PQ ADC probe scan: the counterpart of the reference's
+ops/pallas_adc.py ``ivf_pq_adc_scan_pallas``.
+
+``ivf_pq_adc_scan`` launches the hand-written CUDA kernel
+(``csrc/adc_scan.cu``) for tensors on the card and uses the plain torch
+version, ``ivf_pq_adc_scan_reference``, for tensors on the CPU. There is
+no fallback between the two: a CUDA input that the kernel refuses
+raises.
+
+Output, for query q, probe j and slot p of partition pid = probe_ids[q, j]:
+
+    out[q, j, p] = qn2[q] − 2·(qc[q, j] + Σ_s dlut[q, s, codes[pid, s, p]]) + rnorms[pid, p]
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .util import round_up
+
+# the index layout the reference's kernel requires, kept so both packages
+# read and write the same files: pmax a multiple of 128, S of 8
+PMAX_ALIGN = 128
+S_ALIGN = 8
+
+# launches of each kernel, counted where the wrapper launches it
+launch_counts: dict[str, int] = {"ivf_pq_adc_scan": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def ivf_pq_adc_scan_reference(
+    probe_ids: torch.Tensor,  # (Q, NP) int
+    dlut: torch.Tensor,       # (Q, S, K) f32
+    codes: torch.Tensor,      # (P, S, pmax) uint8
+    rnorms: torch.Tensor,     # (P, pmax) f32, penalties pre-added
+    qc_dots: torch.Tensor,    # (Q, NP) f32
+    qn2: torch.Tensor,        # (Q,) f32
+    max_chunk_bytes: int = 1 << 28,
+) -> torch.Tensor:
+    """Plain torch version: gather the LUT entries and sum over S,
+    chunked over queries so the int64 gather index stays bounded."""
+    q, np_ = probe_ids.shape
+    _, s, pmax = codes.shape
+    k = dlut.shape[2]
+    out = torch.empty((q, np_, pmax), dtype=torch.float32, device=codes.device)
+    per_query = max(1, np_ * s * pmax * 8)
+    step = max(1, max_chunk_bytes // per_query)
+    pids_all = probe_ids.long()
+    for q0 in range(0, q, step):
+        q1 = min(q, q0 + step)
+        pids = pids_all[q0:q1]
+        idx = codes[pids].long()  # (c, NP, S, pmax)
+        lut = dlut[q0:q1].float()[:, None].expand(q1 - q0, np_, s, k)
+        acc = torch.gather(lut, 3, idx).sum(dim=2)  # (c, NP, pmax)
+        out[q0:q1] = (
+            qn2[q0:q1, None, None].float() - 2.0 * (qc_dots[q0:q1, :, None].float() + acc)
+            + rnorms[pids].float()
+        )
+    return out
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _lib() -> ctypes.CDLL:
+    from .cuda_build import load
+
+    lib = load("adc_scan")
+    if not getattr(lib, "_typed", False):
+        lib.adc_scan_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.adc_scan_launch.restype = ctypes.c_int
+        lib.adc_scan_max_smem_bytes.argtypes = []
+        lib.adc_scan_max_smem_bytes.restype = ctypes.c_int
+        lib.adc_scan_error_string.argtypes = [ctypes.c_int]
+        lib.adc_scan_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def ivf_pq_adc_scan(
+    probe_ids: torch.Tensor,  # (Q, NP) int32
+    dlut: torch.Tensor,       # (Q, S, K) f32
+    codes: torch.Tensor,      # (P, S, pmax) uint8
+    rnorms: torch.Tensor,     # (P, pmax) f32, penalties pre-added
+    qc_dots: torch.Tensor,    # (Q, NP) f32
+    qn2: torch.Tensor,        # (Q,) f32
+) -> torch.Tensor:
+    """Fused probe-scan distances → (Q, NP, pmax) f32.
+
+    On the card: one launch of the CUDA kernel on the current stream.
+    On the CPU: the plain version."""
+    dev = codes.device
+    if dev.type == "cpu":
+        return ivf_pq_adc_scan_reference(probe_ids, dlut, codes, rnorms, qc_dots, qn2)
+    if dev.type != "cuda":
+        raise ValueError(f"ivf_pq_adc_scan runs on cuda or cpu tensors, got {dev}")
+    q, np_ = probe_ids.shape
+    p, s, pmax = codes.shape
+    k = dlut.shape[2]
+    _check(probe_ids, "probe_ids", torch.int32, (q, np_), dev)
+    _check(dlut, "dlut", torch.float32, (q, s, k), dev)
+    _check(codes, "codes", torch.uint8, (p, s, pmax), dev)
+    _check(rnorms, "rnorms", torch.float32, (p, pmax), dev)
+    _check(qc_dots, "qc_dots", torch.float32, (q, np_), dev)
+    _check(qn2, "qn2", torch.float32, (q,), dev)
+    if not 1 <= k <= 256:
+        raise ValueError(f"codebook size {k} must be in [1, 256] for uint8 codes")
+    out = torch.empty((q, np_, pmax), dtype=torch.float32, device=dev)
+    if q * np_ == 0 or pmax == 0:
+        return out
+    lib = _lib()
+    smem = s * k * 4
+    limit = lib.adc_scan_max_smem_bytes()
+    if smem > limit:
+        raise ValueError(
+            f"ADC LUT of {s}x{k} f32 needs {smem} bytes of shared memory; the card allows {limit}"
+        )
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.adc_scan_launch(
+            probe_ids.data_ptr(), dlut.data_ptr(), codes.data_ptr(), rnorms.data_ptr(),
+            qc_dots.data_ptr(), qn2.data_ptr(), out.data_ptr(),
+            q, np_, s, k, pmax, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"adc_scan_kernel launch failed: {lib.adc_scan_error_string(err).decode()} ({err})"
+        )
+    launch_counts["ivf_pq_adc_scan"] += 1
+    return out
+
+
+def pad_codes_for_pallas(codes_psp: np.ndarray) -> np.ndarray:
+    """Pad a (P, S, pmax) code array to the index alignment (S→8,
+    pmax→128). Padded subvector rows hold code 0 against zero LUT rows;
+    padded slots are masked by +inf rnorms."""
+    p, s, pmax = codes_psp.shape
+    s_pad, pmax_pad = round_up(s, S_ALIGN), round_up(pmax, PMAX_ALIGN)
+    if (s_pad, pmax_pad) != (s, pmax):
+        codes_psp = np.pad(codes_psp, ((0, 0), (0, s_pad - s), (0, pmax_pad - pmax)))
+    return codes_psp
+
+
+def build_dlut_padded(q: np.ndarray, codebooks: np.ndarray, s_pad: int) -> np.ndarray:
+    """Per-query dot LUT dlut[q, s, c] = q_s · cb[s, c], with zero rows
+    for the padded subvectors."""
+    qf = np.asarray(q, dtype=np.float32)
+    nsub, k, dsub = codebooks.shape
+    qs = qf.reshape(qf.shape[0], nsub, dsub)
+    dlut = np.einsum("qsd,skd->qsk", qs, codebooks.astype(np.float32))
+    if s_pad != nsub:
+        dlut = np.pad(dlut, ((0, 0), (0, s_pad - nsub), (0, 0)))
+    return dlut.astype(np.float32)

@@ -1,0 +1,103 @@
+"""Build the package's CUDA sources with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles into its own shared library with a
+plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -shared -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
+
+The library lands in ``lancedb_tpu_torch/_build/`` under a name that
+carries a hash of the source, so an edited source never loads a stale
+library. Nothing builds at import time: ``load(name)`` builds on first
+use, and ``build_all()`` starts one nvcc per source at once. A failed
+build raises with nvcc's own message.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+# ptxas report (registers, shared memory, spills) of each build, by source
+build_logs: dict[str, str] = {}
+
+
+def sources() -> list[str]:
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    raise RuntimeError("nvcc not found: the CUDA kernels build with the CUDA toolkit's nvcc")
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source; returns (target, process or None)."""
+    target = _target(name)
+    if target.exists():
+        return target, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return target, (proc, tmp, cmd)
+
+
+def _finish(name: str, target: Path, started) -> None:
+    if started is None:
+        return
+    proc, tmp, cmd = started
+    out, _ = proc.communicate()
+    build_logs[name] = out
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu ({' '.join(cmd)}):\n{out}")
+    os.replace(tmp, target)
+
+
+def build_all() -> dict[str, Path]:
+    """Compile every source, one nvcc process each, all started together."""
+    with _lock:
+        started = {name: _start(name) for name in sources()}
+        for name, (target, st) in started.items():
+            _finish(name, target, st)
+        return {name: target for name, (target, _) in started.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            target, st = _start(name)
+            _finish(name, target, st)
+            lib = _libs[name] = ctypes.CDLL(str(target))
+    return lib
