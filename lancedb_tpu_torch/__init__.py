@@ -8,6 +8,7 @@ Same surface and on-disk format as ``lancedb_tpu``:
     tbl = db.create_table("items", data)
     tbl.create_index(config=IvfPq(num_partitions=1024, num_sub_vectors=16))
     tbl.search(q).where("category < 5").nprobes(20).refine_factor(10).limit(10).to_arrow()
+    tbl.create_index(config=IvfFlat(num_partitions=1024))  # or Flat()
 
 The package imports neither JAX nor ``lancedb_tpu``; CUDA kernels build
 from ``csrc/`` with nvcc on first use.
@@ -21,7 +22,7 @@ from .errors import (
     TableAlreadyExistsError,
     TableNotFoundError,
 )
-from .index import IvfPq
+from .index import Flat, IvfFlat, IvfPq
 from .session import Session
 from .table import Table
 
@@ -32,6 +33,8 @@ __all__ = [
     "LanceDBConnection",
     "Table",
     "Session",
+    "Flat",
+    "IvfFlat",
     "IvfPq",
     "LanceDBError",
     "InvalidInputError",

@@ -1,12 +1,32 @@
-"""Index configuration — the IVF_PQ part of the reference's index surface.
+"""Index configuration — the FLAT, IVF_FLAT and IVF_PQ part of the
+reference's index surface.
 
-The other index types (IVF_FLAT, IVF_SQ, IVF_RQ, FLAT, HNSW, scalar and
-full-text indexes) wait for later slices (ROADMAP A6-A9, A12).
+The other index types (IVF_SQ, IVF_RQ, HNSW, scalar and full-text
+indexes) wait for later slices (ROADMAP A7-A9, A12).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+
+@dataclass
+class IvfFlat:
+    """IVF with a full-precision scan of the probed partitions (reference
+    IvfFlatIndexBuilder)."""
+
+    distance_type: str = "l2"
+    num_partitions: int | None = None  # default √N at build time
+    sample_rate: int = 256
+    max_iterations: int = 50
+    seed: int = 0
+    # dtype of the one-time table upload for the k-means (as IvfPq's)
+    build_precision: str = "bfloat16"
+    # device storage for the scan: float32 ranks exactly; bfloat16 halves
+    # device memory and scan bytes at some recall cost (the files stay f32)
+    precision: str = "float32"
+
+    index_type: str = "IVF_FLAT"
 
 
 @dataclass
@@ -31,6 +51,16 @@ class IvfPq:
     opq_iters: int = 8
 
     index_type: str = "IVF_PQ"
+
+
+@dataclass
+class Flat:
+    """Brute-force scan 'index': the table resident on the device, searched
+    exactly (reference Index::Flat)."""
+
+    distance_type: str = "l2"
+
+    index_type: str = "FLAT"
 
 
 def default_num_partitions(num_rows: int) -> int:

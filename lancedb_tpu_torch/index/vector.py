@@ -1,27 +1,35 @@
-"""Vector index build + search: IVF_PQ, and brute force for unindexed rows.
+"""Vector index build + search: FLAT, IVF_FLAT and IVF_PQ, and brute force
+for unindexed rows.
 
-Port of the IVF_PQ and brute-force parts of the reference's
-index/vector.py. The on-disk layout is the reference's, byte for byte,
-so either package reads what the other wrote:
+Port of those parts of the reference's index/vector.py. The on-disk
+layout is the reference's, byte for byte, so either package reads what
+the other wrote:
 
-* partitions are padded dense blocks (P, pmax); fat k-means partitions
-  are split into duplicate-centroid blocks (``_balanced_layout``) and
-  ``num_partitions`` in meta.json counts blocks;
-* ``codes.npy`` is (P, S_pad, pmax) uint8, S padded to 8 and pmax to
-  128; ``rnorms.npy`` (P, pmax) f32 holds |c_p + r̃|² with +3e38 on
-  padding; ``row_ids.npy`` (P, pmax) int64 with -1 on padding.
+* FLAT keeps ``vectors.npy`` (N, D) f32 (unit rows for cosine) and
+  ``row_ids.npy`` (N,) uint64;
+* IVF partitions are padded dense blocks (P, pmax); fat k-means
+  partitions are split into duplicate-centroid blocks
+  (``_balanced_layout``) and ``num_partitions`` in meta.json counts
+  blocks; ``row_ids.npy`` is (P, pmax) int64 with -1 on padding;
+* IVF_FLAT keeps ``vectors.npy`` (P, pmax, D) f32, pmax a multiple of 8,
+  and its storage precision in meta.json;
+* IVF_PQ keeps ``codes.npy`` (P, S_pad, pmax) uint8, S padded to 8 and
+  pmax to 128, and ``rnorms.npy`` (P, pmax) f32 holding |c_p + r̃|² with
+  +3e38 on padding.
 
-Search is d(q, x̃) = |q|² − 2(q·c_p + q·r̃) + |x̃|²: probe selection,
-the per-query dot LUT, and the fused ADC scan of ops/adc.py (the CUDA
-kernel on the card), then top-k and an optional fused refine against a
-device-resident copy of the column. Deletes and filters enter as a
-per-slot additive penalty.
+IVF_PQ search is d(q, x̃) = |q|² − 2(q·c_p + q·r̃) + |x̃|²: probe
+selection, the per-query dot LUT and the ADC scan of ops/adc.py. IVF_FLAT
+search is probe selection and the grouped flat scan of ops/flat_scan.py;
+both scans run as CUDA kernels on the card. FLAT search is a plain
+product over the whole table. Top-k follows, and for IVF_PQ an optional
+fused refine against a device-resident copy of the column. Deletes and
+filters enter as a per-slot additive penalty.
 
 Not ported: the reference's static-shape machinery (query buckets,
 probe-capacity buckets, the runtime probe mask and ``lax.scan``
 chunking) exists for XLA and has no use here: nprobes is a plain int and
 the probes are scanned directly. The other index types wait for later
-slices (FLAT and IVF_FLAT: ROADMAP A6; IVF_SQ and IVF_RQ: A7; HNSW: A8).
+slices (IVF_SQ and IVF_RQ: ROADMAP A7; HNSW: A8).
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from ..errors import InvalidInputError
 from ..io.object_store import ObjectStore
 from ..ops.adc import PMAX_ALIGN, S_ALIGN, ivf_pq_adc_scan
 from ..ops.distance import normalize_metric, pairwise_distance, refine_distances
+from ..ops.flat_scan import ivf_flat_grouped_scan
 from ..ops.kmeans import ivf_train_assign_device
 from ..ops.pq import default_num_sub_vectors, pq_build_device
 from ..ops.topk import topk_smallest
@@ -57,14 +66,20 @@ _INVALID_ROWID = np.uint64(np.iinfo(np.uint64).max)
 # queries per scan: bounds the (Q, nprobes, pmax) distance transient
 _Q_CHUNK = 128
 
+PORTED_INDEX_TYPES = ("FLAT", "IVF_FLAT", "IVF_PQ")
 _NOT_PORTED = {
-    "FLAT": "A6", "IVF_FLAT": "A6", "IVF_SQ": "A7", "IVF_RQ": "A7",
+    "IVF_SQ": "A7", "IVF_RQ": "A7",
     "IVF_HNSW_PQ": "A8", "IVF_HNSW_SQ": "A8", "IVF_HNSW_FLAT": "A8",
 }
 
 
-def _not_ported(index_type: str) -> NotImplementedError:
-    item = _NOT_PORTED.get(index_type, "A6-A9")
+def _not_ported(index_type: str) -> Exception:
+    """The error for an index type this package cannot build or load:
+    a later slice's (NotImplementedError naming its ROADMAP item), or
+    none the reference knows either (InvalidInputError, as there)."""
+    item = _NOT_PORTED.get(index_type)
+    if item is None:
+        return InvalidInputError(f"unsupported index_type {index_type!r}")
     return NotImplementedError(
         f"{index_type} indexes are not ported to lancedb_tpu_torch yet (ROADMAP {item})"
     )
@@ -77,6 +92,13 @@ class SearchParams:
     k: int = 10
     nprobes: int = 20  # minimum_nprobes default (query.rs:1103)
     refine_factor: int | None = None
+    precision: str = "default"  # FLAT scans: 'default' (two-pass) | 'float32' | 'bfloat16'
+    # reference ApproxMode (lib.rs:299-307): 'accurate' turns the FLAT
+    # two-pass into the exact f32 scan
+    approx_mode: str = "normal"
+    # planner override: True keeps IVF_FLAT on the probed scan where the
+    # planner would take the shared full scan (None = the planner decides)
+    use_index_for_batch: bool | None = None
 
 
 # --------------------------------------------------------------- save/load
@@ -195,15 +217,17 @@ def build_vector_index(
     name: str | None = None,
     device=None,
 ) -> IndexMeta:
-    """Train + encode + persist one IVF_PQ index; returns its catalog entry.
+    """Build and persist one FLAT, IVF_FLAT or IVF_PQ index; returns its
+    catalog entry.
 
-    The table uploads to the device once; k-means, assignment, residuals
-    and PQ training and encoding run there, and only the small artifacts
+    FLAT writes the rows as they are. For the IVF types the table uploads
+    to the device once; k-means, assignment (and for IVF_PQ residuals and
+    PQ training and encoding) run there, and only the small artifacts
     (assignment, codes, rnorms) come back to be laid out and written."""
     device = resolve_device(device)
     t0 = time.time()
     index_type = config.index_type
-    if index_type != "IVF_PQ":
+    if index_type not in PORTED_INDEX_TYPES:
         raise _not_ported(index_type)
     if getattr(config, "opq", False):
         raise NotImplementedError("OPQ index builds are not ported yet (ROADMAP A3)")
@@ -225,14 +249,43 @@ def build_vector_index(
         norms = np.linalg.norm(vectors, axis=1, keepdims=True)
         vectors = vectors / np.maximum(norms, 1e-30)
 
+    if index_type == "FLAT":
+        _save_npy(store, f"{prefix}/vectors.npy", vectors)
+        _save_npy(store, f"{prefix}/row_ids.npy", row_ids)
+    else:
+        _build_ivf(store, prefix, meta_doc, config, vectors, row_ids, metric, device)
+    meta_doc["build_seconds"] = time.time() - t0
+    store.write_bytes(f"{prefix}/meta.json", json.dumps(meta_doc).encode())
+    return IndexMeta(
+        name=name or f"{column}_idx",
+        uuid=uuid,
+        columns=[column],
+        index_type=index_type,
+        params=meta_doc,
+        fragment_ids=frag_ids,
+        num_indexed_rows=n,
+        created_at=time.time(),
+    )
+
+
+def _build_ivf(
+    store: ObjectStore, prefix: str, meta_doc: dict, config, vectors: np.ndarray,
+    row_ids: np.ndarray, metric: str, device: torch.device,
+) -> None:
+    """The IVF types' files: k-means on the device, the padded block
+    layout, then IVF_FLAT's padded vectors or IVF_PQ's codes."""
+    index_type = config.index_type
+    n, dim = vectors.shape
     nparts = config.num_partitions or default_num_partitions(n)
     if nparts > n:
         raise InvalidInputError(f"num_partitions {nparts} > num_rows {n}")
-    if config.num_bits not in (4, 8):
-        raise InvalidInputError("num_bits must be 4 or 8")
-    nsub = _resolve_nsub(config, dim)
-    if dim % nsub:
-        raise InvalidInputError(f"dim {dim} not divisible by num_sub_vectors {nsub}")
+    is_pq = index_type == "IVF_PQ"
+    if is_pq:
+        if config.num_bits not in (4, 8):
+            raise InvalidInputError("num_bits must be 4 or 8")
+        nsub = _resolve_nsub(config, dim)
+        if dim % nsub:
+            raise InvalidInputError(f"dim {dim} not divisible by num_sub_vectors {nsub}")
     train_metric = "l2" if metric == "cosine" else metric
     chunk = 1 << 17 if dim <= 256 else 1 << 15
     build_dtype = (
@@ -240,7 +293,7 @@ def build_vector_index(
         if getattr(config, "build_precision", "bfloat16") == "float32" or device.type == "cpu"
         else torch.bfloat16
     )
-    if build_dtype == torch.bfloat16 and n * dim * 4 > 2_000_000_000:
+    if is_pq and build_dtype == torch.bfloat16 and n * dim * 4 > 2_000_000_000:
         # the reference switches to bf16 residuals here and to residuals
         # formed per chunk above 8e9 bytes
         raise NotImplementedError(
@@ -264,20 +317,24 @@ def build_vector_index(
     cents_d, assign_d, residuals_d = ivf_train_assign_device(
         xd, torch.from_numpy(sel), torch.from_numpy(pool_sel), gen, torch.from_numpy(reseed),
         k=nparts, max_iters=config.max_iterations, metric=train_metric,
-        chunk=min(chunk, n), with_residuals=True,
+        chunk=min(chunk, n), with_residuals=is_pq,
     )
     del xd
     centroids = cents_d.cpu().numpy()
     assign = assign_d.cpu().numpy()
     # PQ blocks keep the lane alignment the reference's kernel requires
     order, block_centroids, counts, pmax = _balanced_layout(
-        assign, centroids, pad_multiple=PMAX_ALIGN
+        assign, centroids, pad_multiple=PMAX_ALIGN if is_pq else 8
     )
     rid_padded = _scatter_padded(row_ids.view(np.int64), order, counts, pmax, fill=-1)
     _save_npy(store, f"{prefix}/centroids.npy", block_centroids)
     _save_npy(store, f"{prefix}/row_ids.npy", rid_padded)
     _save_npy(store, f"{prefix}/counts.npy", counts.astype(np.int32))
     meta_doc.update(num_partitions=len(counts), num_logical_partitions=nparts, pmax=pmax)
+    if not is_pq:
+        _save_npy(store, f"{prefix}/vectors.npy", _scatter_padded(vectors, order, counts, pmax))
+        meta_doc["precision"] = getattr(config, "precision", "float32")
+        return
 
     kcode = 1 << config.num_bits
     rng_pq = np.random.default_rng(config.seed + 1)
@@ -313,18 +370,6 @@ def build_vector_index(
         _scatter_padded(rnorms, order, counts, pmax, fill=PAD_PENALTY),
     )
     meta_doc.update(num_sub_vectors=nsub, num_bits=config.num_bits)
-    meta_doc["build_seconds"] = time.time() - t0
-    store.write_bytes(f"{prefix}/meta.json", json.dumps(meta_doc).encode())
-    return IndexMeta(
-        name=name or f"{column}_idx",
-        uuid=uuid,
-        columns=[column],
-        index_type=index_type,
-        params=meta_doc,
-        fragment_ids=frag_ids,
-        num_indexed_rows=n,
-        created_at=time.time(),
-    )
 
 
 # ------------------------------------------------------------------ search
@@ -389,16 +434,138 @@ def _ivf_pq_search(
         probe_ids.to(torch.int32), dlut, codes, rn.contiguous(),
         probe_dots.contiguous(), qn2.contiguous(),
     )
-    flat = dists.reshape(qb, nprobes * pmax)
+    vals, slots = _probe_topk(dists, probe_ids, k)
+    if metric == "dot":
+        vals = torch.where(vals < _PAD / 2, vals * 0.5, vals)
+    return vals, slots
+
+
+def _probe_topk(dists: torch.Tensor, probe_ids: torch.Tensor, k: int):
+    """(Q, NP, pmax) probed distances → the k smallest as (vals, global
+    slots = block * pmax + offset), padded with +inf past NP·pmax."""
+    qb, nprobes, pmax = dists.shape
     k_sel = min(k, nprobes * pmax)
-    vals, pos = topk_smallest(flat, k_sel)
+    vals, pos = topk_smallest(dists.reshape(qb, nprobes * pmax), k_sel)
     slots = torch.gather(probe_ids, 1, pos // pmax) * pmax + pos % pmax
     if k_sel < k:
         vals = torch.nn.functional.pad(vals, (0, k - k_sel), value=float("inf"))
         slots = torch.nn.functional.pad(slots, (0, k - k_sel))
-    if metric == "dot":
-        vals = torch.where(vals < _PAD / 2, vals * 0.5, vals)
     return vals, slots
+
+
+def _flat_coefs(q: torch.Tensor, norms2: torch.Tensor, pad_pen: torch.Tensor, metric: str):
+    """The flat scan's per-query (alpha, gamma) and per-slot additive term
+    for ``metric`` (ops/flat_scan.py): l2 adds |x|², which already holds
+    +3e38 on padding; cosine and dot add only the padding penalty."""
+    qb = q.shape[0]
+    if metric == "l2":
+        return torch.full((qb,), -2.0, device=q.device), torch.sum(torch.square(q), dim=-1), norms2
+    if metric == "cosine":
+        qn = torch.clamp(torch.sqrt(torch.sum(torch.square(q), dim=-1)), min=1e-30)
+        return -1.0 / qn, torch.ones((qb,), device=q.device), pad_pen
+    return torch.full((qb,), -1.0, device=q.device), torch.zeros((qb,), device=q.device), pad_pen
+
+
+def _ivf_flat_search(
+    q: torch.Tensor,
+    dev: dict[str, torch.Tensor],
+    slot_penalty: torch.Tensor | None,
+    nprobes: int,
+    k: int,
+    metric: str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """IVF_FLAT probed scan (the reference's _ivf_flat_search_device_rt
+    on its fused path): probe selection, then ONE grouped-scan launch over
+    every probe of the chunk, then top-k. The distances are the metric's
+    own (cosine is 1 − cos, dot is −q·x): nothing to halve afterwards."""
+    vectors = dev["vectors"]
+    nparts, pmax, _ = vectors.shape
+    probe_ids, _ = _select_probes(q, dev["centroids"], nprobes, metric)
+    alpha, gamma, norms = _flat_coefs(q, dev["norms2"], dev["pad_pen"], metric)
+    if slot_penalty is not None:
+        norms = norms + slot_penalty.reshape(nparts, pmax)
+    dists = ivf_flat_grouped_scan(
+        probe_ids.to(torch.int32), q.contiguous(), vectors, norms.contiguous(),
+        alpha.contiguous(), gamma.contiguous(),
+    )
+    return _probe_topk(dists, probe_ids, k)
+
+
+def _flat_dists(q: torch.Tensor, src: torch.Tensor, norms2: torch.Tensor, metric: str
+                ) -> torch.Tensor:
+    """(Q, N) distances of the FLAT scan, before penalties. Against f32
+    rows the product is full f32 (TF32 stays off, the PyTorch default);
+    against low-precision rows the query is rounded to their dtype too
+    and the products accumulate in f32, as the reference's are."""
+    if src.dtype == torch.float32:
+        dots = q @ src.T
+    else:
+        dots = q.to(src.dtype).float() @ src.float().T
+    if metric == "dot":
+        return -dots
+    if metric == "cosine":
+        qn = torch.sqrt(torch.sum(torch.square(q), dim=-1, keepdim=True))
+        return 1.0 - dots / torch.clamp(qn, min=1e-30)  # index rows are unit-norm
+    qn2 = torch.sum(torch.square(q), dim=-1, keepdim=True)
+    return torch.clamp(qn2 - 2.0 * dots + norms2[None, :], min=0.0)
+
+
+def _flat_search(
+    q: torch.Tensor, vectors: torch.Tensor, vectors_lp: torch.Tensor | None,
+    norms2: torch.Tensor, penalty: torch.Tensor, k: int, metric: str, mode: str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Brute-force scan (the reference's _flat_search_device). vectors
+    (N, D) f32; vectors_lp the same rows in ``matmul_dtype``, resident.
+
+    * 'float32': exact f32 product + exact top-k;
+    * 'bfloat16': low-precision product + top-k;
+    * 'default': two passes, low-precision candidates (8·k, at least 64)
+      reranked in exact f32.
+
+    The reference selects in 'bfloat16' and in the first pass with the
+    TPU's approximate top-k; here both selections are exact, which can
+    only raise recall (ROADMAP A1). These are large plain products, left
+    to ``torch.matmul`` as the reference left them to XLA."""
+    if mode == "float32":
+        return topk_smallest(_flat_dists(q, vectors, norms2, metric) + penalty[None, :], k)
+    coarse = _flat_dists(q, vectors_lp, norms2, metric) + penalty[None, :]
+    if mode == "bfloat16":
+        return topk_smallest(coarse, k)
+    kc = min(max(8 * k, 64), vectors.shape[0])
+    _, cand = topk_smallest(coarse, kc)
+    del coarse
+    xc = vectors[cand].float()  # (Q, kc, D)
+    if metric == "l2":
+        d2 = torch.sum(torch.square(q[:, None, :] - xc), dim=-1)
+    else:
+        dots = torch.einsum("qd,qcd->qc", q, xc)
+        if metric == "dot":
+            d2 = -dots
+        else:
+            qn = torch.sqrt(torch.sum(torch.square(q), dim=-1, keepdim=True))
+            d2 = 1.0 - dots / torch.clamp(qn, min=1e-30)
+    vals, pos = topk_smallest(d2 + penalty[cand], k)
+    return vals, torch.gather(cand, 1, pos)
+
+
+def _ivf_full_scan(
+    q: torch.Tensor, vectors: torch.Tensor, norms2: torch.Tensor,
+    slot_penalty: torch.Tensor | None, k: int, metric: str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scan an IVF_FLAT index as one flat table (the reference's
+    _ivf_full_scan_device, the planner's route for large batches when no
+    probed kernel serves the device): the padded blocks flattened and
+    scanned in f32 against the stored rows, with exact top-k. Padding
+    carries its +3e38 in the penalty for every metric.
+    Its (Q, P·pmax) distance matrix and the sort over it are this
+    route's largest transients."""
+    nslots = vectors.shape[0] * vectors.shape[1]
+    flat_vecs = vectors.reshape(nslots, -1)
+    flat_norms = norms2.reshape(nslots)
+    pen = torch.where(flat_norms >= _PAD, _PAD, 0.0)
+    if slot_penalty is not None:
+        pen = pen + slot_penalty
+    return _flat_search(q, flat_vecs, None, flat_norms, pen, k, metric, "float32")
 
 
 def _device_refine_step(
@@ -431,15 +598,36 @@ def _device_refine_step(
     return v, torch.gather(slots, 1, pos)
 
 
+# the index files each ported type loads, by file stem
+_INDEX_FILES = {
+    "FLAT": ("vectors", "row_ids"),
+    "IVF_FLAT": ("centroids", "vectors", "row_ids"),
+    "IVF_PQ": ("centroids", "codes", "rnorms", "codebooks", "row_ids"),
+}
+
+
+def _planner_batch(nq: int) -> int:
+    """The batch size the IVF_FLAT planner rule compares. The reference
+    pads each batch of at most 128 queries to 8, 32 or 128 (its XLA
+    shape buckets) and applies the rule to the padded size; the port pads
+    nothing, but rounds the same way so both packages take the same route
+    on the same batch."""
+    for bucket in (8, 32):
+        if nq <= bucket:
+            return bucket
+    return _Q_CHUNK
+
+
 class VectorSearcher:
-    """A loaded, device-resident IVF_PQ index ready to serve queries."""
+    """A loaded, device-resident FLAT, IVF_FLAT or IVF_PQ index ready to
+    serve queries."""
 
     def __init__(self, store: ObjectStore, prefix: str, meta: IndexMeta | None = None,
                  device=None):
         params = json.loads(store.read_bytes(f"{prefix}/meta.json"))
-        if params["index_type"] != "IVF_PQ":
+        if params["index_type"] not in PORTED_INDEX_TYPES:
             raise _not_ported(params["index_type"])
-        names = ["centroids", "codes", "rnorms", "codebooks", "row_ids"]
+        names = list(_INDEX_FILES[params["index_type"]])
         if params.get("opq"):
             names.append("rotation")
         arrays = {n: np.asarray(_load_npy(store, f"{prefix}/{n}.npy")) for n in names}
@@ -447,9 +635,10 @@ class VectorSearcher:
 
     @classmethod
     def from_arrays(cls, meta_doc: dict, arrays: dict, device=None) -> "VectorSearcher":
-        """A searcher over the reference's IVF_PQ arrays (the contents of
-        the index's .npy files, by file stem) without touching disk."""
-        if meta_doc["index_type"] != "IVF_PQ":
+        """A searcher over the reference's arrays of a FLAT, IVF_FLAT or
+        IVF_PQ index (the contents of its .npy files, by file stem)
+        without touching disk."""
+        if meta_doc["index_type"] not in PORTED_INDEX_TYPES:
             raise _not_ported(meta_doc["index_type"])
         self = cls.__new__(cls)
         self._load(dict(meta_doc), {k: np.asarray(v) for k, v in arrays.items()}, device)
@@ -462,22 +651,68 @@ class VectorSearcher:
         self.metric = params["metric"]
         self.index_type = params["index_type"]
         self.dim = params["dim"]
+        self._device: dict[str, torch.Tensor] = {}
+        if self.index_type == "FLAT":
+            self._load_flat(arrays)
+            return
         self.nparts = params["num_partitions"]
         self.pmax = params["pmax"]
         rid = arrays["row_ids"]  # (P, pmax) int64, -1 on padding
         self.row_ids_flat = rid.reshape(-1).view(np.uint64)
         self.row_ids_valid = rid.reshape(-1) >= 0
         self.num_slots = self.nparts * self.pmax
-        self._device: dict[str, torch.Tensor] = {
-            "centroids": _to_device(arrays["centroids"].astype(np.float32, copy=False), self.device),
-            "codes": _to_device(arrays["codes"], self.device),
-            "rnorms": _to_device(arrays["rnorms"].astype(np.float32, copy=False), self.device),
-            "codebooks": _to_device(arrays["codebooks"].astype(np.float32, copy=False), self.device),
-        }
-        if "rotation" in arrays:
-            self._device["rotation"] = _to_device(
-                arrays["rotation"].astype(np.float32, copy=False), self.device
+        self._device["centroids"] = _to_device(
+            arrays["centroids"].astype(np.float32, copy=False), self.device
+        )
+        if self.index_type == "IVF_FLAT":
+            vecs = arrays["vectors"].astype(np.float32, copy=False)
+            norms2 = np.sum(vecs.astype(np.float64) ** 2, axis=2).astype(np.float32)
+            norms2[~self.row_ids_valid.reshape(self.nparts, self.pmax)] = PAD_PENALTY
+            # storage per build config: f32 ranks exactly; bf16 (on the
+            # card) halves memory and scan bytes, and the f32 norms keep
+            # the l2 expansion accurate either way
+            dtype = (
+                matmul_dtype(self.device) if params.get("precision") == "bfloat16"
+                else torch.float32
             )
+            self._device["vectors"] = _to_device(vecs, self.device, dtype)
+            n2 = self._device["norms2"] = _to_device(norms2, self.device)
+            self._device["pad_pen"] = torch.where(n2 >= _PAD, _PAD, 0.0)
+            return
+        self._device["codes"] = _to_device(arrays["codes"], self.device)
+        for name in ("rnorms", "codebooks", "rotation"):  # rotation: OPQ indexes only
+            if name in arrays:
+                self._device[name] = _to_device(
+                    arrays[name].astype(np.float32, copy=False), self.device
+                )
+
+    def _load_flat(self, arrays: dict) -> None:
+        """FLAT: the rows padded to a multiple of 8, padding penalized."""
+        vecs = arrays["vectors"].astype(np.float32, copy=False)
+        rids = arrays["row_ids"].astype(np.uint64)
+        n = vecs.shape[0]
+        n_pad = round_up(n, 8)
+        penalty = np.zeros(n_pad, np.float32)
+        penalty[n:] = PAD_PENALTY
+        if n_pad != n:
+            vecs = np.pad(vecs, ((0, n_pad - n), (0, 0)))
+            rids = np.pad(rids, (0, n_pad - n), constant_values=_INVALID_ROWID)
+        self.row_ids_flat = rids
+        self.row_ids_valid = np.arange(n_pad) < n
+        self.num_slots = n_pad
+        norms2 = np.sum(vecs.astype(np.float64) ** 2, axis=1).astype(np.float32)
+        self._device["vectors"] = _to_device(vecs, self.device)
+        self._device["norms2"] = _to_device(norms2, self.device)
+        self._device["penalty"] = _to_device(penalty, self.device)
+
+    def _vectors_lp(self) -> torch.Tensor:
+        """The FLAT table in ``matmul_dtype``, resident, made on the first
+        low-precision search (+2 bytes per element on the card: the coarse
+        pass then reads half the bytes; on the CPU it is the f32 table)."""
+        lp = self._device.get("vectors_lp")
+        if lp is None:
+            lp = self._device["vectors_lp"] = self._device["vectors"].to(matmul_dtype(self.device))
+        return lp
 
     # ---- mask plumbing -------------------------------------------------
     def slot_penalty(
@@ -535,8 +770,16 @@ class VectorSearcher:
         return mat, pos, found
 
     def will_fuse_refine(self, params: SearchParams) -> bool:
-        """Whether search(params) returns already-refined results."""
-        return params.refine_factor is not None and self.device_refine_active
+        """Whether search(params) returns already-refined results: only a
+        quantized index fuses, and a precision='float32' request only
+        against an f32 table (never silently against a narrower one)."""
+        return (
+            params.refine_factor is not None
+            and self.device_refine_active
+            and self.index_type == "IVF_PQ"
+            and (params.precision != "float32"
+                 or self._device["refine_vecs"].dtype == torch.float32)
+        )
 
     def prepare_device_refine(self, dataset, column: str, precision: str | None = None) -> bool:
         """Upload a device-resident copy of the original vectors for the
@@ -549,12 +792,16 @@ class VectorSearcher:
         and f16 above it; a sub-f32 table holds residuals against each
         slot's block centroid, rebuilt in f32 inside the refine step.
         Rows deleted after the build map to row 0: their slots are
-        penalized before the refine."""
+        penalized before the refine. FLAT and IVF_FLAT indexes scan the
+        vectors themselves and keep the host refine (False)."""
         if self.device_refine_active:
             return True
         if getattr(self, "_refine_unavailable", False):
             return False
         if os.environ.get("LANCEDB_TPU_DEVICE_REFINE", "1") == "0":
+            return False
+        if self.index_type != "IVF_PQ":
+            self._refine_unavailable = True
             return False
         n_live = dataset.count_rows() if hasattr(dataset, "count_rows") else None
         budget = float(os.environ.get("LANCEDB_TPU_DEVICE_REFINE_BUDGET", 6e9))
@@ -614,19 +861,21 @@ class VectorSearcher:
             q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-30)
         k_eff = params.k if params.refine_factor is None else params.k * params.refine_factor
         k_eff = min(k_eff, self.num_slots)
-        # nprobes is block-granular: fat logical partitions were split
-        # into duplicate-centroid blocks at build (_balanced_layout), so
-        # rescale the user's per-partition nprobes to blocks
-        logical = self.params.get("num_logical_partitions", self.nparts)
-        scale = self.nparts / max(1, logical)
-        nprobes = min(self.nparts, max(1, int(np.ceil(params.nprobes * scale))))
+        nprobes = 0
+        if self.index_type != "FLAT":
+            # nprobes is block-granular: fat logical partitions were split
+            # into duplicate-centroid blocks at build (_balanced_layout),
+            # so rescale the user's per-partition nprobes to blocks
+            logical = self.params.get("num_logical_partitions", self.nparts)
+            scale = self.nparts / max(1, logical)
+            nprobes = min(self.nparts, max(1, int(np.ceil(params.nprobes * scale))))
         pen = None if slot_penalty is None else _to_device(slot_penalty, self.device)
         fused = self.will_fuse_refine(params)
         dev = self._device
         vals_out, slots_out = [], []
         for i in range(0, q.shape[0], _Q_CHUNK):
             qj = _to_device(q[i : i + _Q_CHUNK], self.device)
-            vals, slots = _ivf_pq_search(qj, dev, pen, nprobes, k_eff, self.metric)
+            vals, slots = self._scan(qj, params, pen, nprobes, k_eff)
             if fused:
                 residual = getattr(self, "_refine_residual", False)
                 vals, slots = _device_refine_step(
@@ -643,10 +892,42 @@ class VectorSearcher:
         invalid = vals >= PAD_PENALTY / 2
         rids = np.where(invalid, _INVALID_ROWID, rids)
         vals = np.where(invalid, np.float32(np.inf), vals)
-        if self.metric == "cosine" and not fused:
-            # the scan computes l2² on the unit sphere = 2·(1−cos)
+        if self.metric == "cosine" and not fused and self.index_type == "IVF_PQ":
+            # the ADC scan computes l2² on the unit sphere = 2·(1−cos);
+            # FLAT and IVF_FLAT give the cosine distance directly
             vals = np.where(np.isfinite(vals), vals / 2.0, vals)
         return vals.astype(np.float32), rids
+
+    def _scan(self, q: torch.Tensor, params: SearchParams, pen: torch.Tensor | None,
+              nprobes: int, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """One chunk of queries through this index type's scan → (vals, slots)."""
+        dev = self._device
+        if self.index_type == "FLAT":
+            mode = params.precision
+            if mode == "default" and params.approx_mode == "accurate":
+                mode = "float32"
+            return _flat_search(
+                q, dev["vectors"], None if mode == "float32" else self._vectors_lp(),
+                dev["norms2"], dev["penalty"] if pen is None else dev["penalty"] + pen,
+                k, self.metric, mode,
+            )
+        if self.index_type == "IVF_PQ":
+            return _ivf_pq_search(q, dev, pen, nprobes, k, self.metric)
+        # The reference's batched-query planner: without a fused probed
+        # kernel, a large batch reads less in one shared full scan than in
+        # its probed gathers (qb·nprobes ≥ 2.5·P). The grouped kernel reads
+        # each probed block about once per batch, so wherever it serves the
+        # device (the card here; the reference's TPU, which also needs
+        # D % 128 == 0, a condition the CUDA kernel does not have) the
+        # probed scan always runs.
+        fused_ok = self.device.type == "cuda"
+        if (
+            _planner_batch(q.shape[0]) * nprobes >= 2.5 * self.nparts
+            and params.use_index_for_batch is not True
+            and not fused_ok
+        ):
+            return _ivf_full_scan(q, dev["vectors"], dev["norms2"], pen, k, self.metric)
+        return _ivf_flat_search(q, dev, pen, nprobes, k, self.metric)
 
     def refine(self, dataset, column, queries, dists, row_ids, k):
         """Exact host rerank of candidates (late materialization)."""
@@ -698,7 +979,7 @@ def refine_candidates(
 
 
 def load_searcher(dataset, meta: IndexMeta, device=None) -> VectorSearcher:
-    if meta.index_type != "IVF_PQ":
+    if meta.index_type not in PORTED_INDEX_TYPES:
         raise _not_ported(meta.index_type)
     return VectorSearcher(dataset.store, dataset.index_dir(meta.uuid), meta, device)
 

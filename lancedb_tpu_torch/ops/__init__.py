@@ -1,6 +1,7 @@
 """Device compute in PyTorch, plus the hand-written CUDA kernels (csrc/)."""
 
 from .adc import ivf_pq_adc_scan, ivf_pq_adc_scan_reference, launch_counts, reset_launch_counts
+from .flat_scan import ivf_flat_grouped_scan, ivf_flat_scan, ivf_flat_scan_reference
 from .distance import normalize_metric, pairwise_distance, refine_distances, squared_norms
 from .kmeans import (
     assign_residuals_device,
@@ -16,6 +17,9 @@ __all__ = [
     "ivf_pq_adc_scan_reference",
     "launch_counts",
     "reset_launch_counts",
+    "ivf_flat_grouped_scan",
+    "ivf_flat_scan",
+    "ivf_flat_scan_reference",
     "normalize_metric",
     "pairwise_distance",
     "refine_distances",

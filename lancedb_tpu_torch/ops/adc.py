@@ -19,20 +19,14 @@ import ctypes
 import numpy as np
 import torch
 
+from .cuda_build import launch, launch_counts, load, reset_launch_counts  # noqa: F401
+from .util import check_tensor as _check
 from .util import round_up
 
 # the index layout the reference's kernel requires, kept so both packages
 # read and write the same files: pmax a multiple of 128, S of 8
 PMAX_ALIGN = 128
 S_ALIGN = 8
-
-# launches of each kernel, counted where the wrapper launches it
-launch_counts: dict[str, int] = {"ivf_pq_adc_scan": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
 
 
 def ivf_pq_adc_scan_reference(
@@ -66,30 +60,11 @@ def ivf_pq_adc_scan_reference(
     return out
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _lib() -> ctypes.CDLL:
-    from .cuda_build import load
-
-    lib = load("adc_scan")
-    if not getattr(lib, "_typed", False):
-        lib.adc_scan_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        lib.adc_scan_launch.restype = ctypes.c_int
-        lib.adc_scan_max_smem_bytes.argtypes = []
-        lib.adc_scan_max_smem_bytes.restype = ctypes.c_int
-        lib.adc_scan_error_string.argtypes = [ctypes.c_int]
-        lib.adc_scan_error_string.restype = ctypes.c_char_p
-        lib._typed = True
-    return lib
+def _max_smem_bytes() -> int:
+    """Shared memory one block may opt into on the current card."""
+    fn = load("adc_scan").adc_scan_max_smem_bytes
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
 
 
 def ivf_pq_adc_scan(
@@ -123,24 +98,18 @@ def ivf_pq_adc_scan(
     out = torch.empty((q, np_, pmax), dtype=torch.float32, device=dev)
     if q * np_ == 0 or pmax == 0:
         return out
-    lib = _lib()
     smem = s * k * 4
-    limit = lib.adc_scan_max_smem_bytes()
+    limit = _max_smem_bytes()
     if smem > limit:
         raise ValueError(
             f"ADC LUT of {s}x{k} f32 needs {smem} bytes of shared memory; the card allows {limit}"
         )
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.adc_scan_launch(
-            probe_ids.data_ptr(), dlut.data_ptr(), codes.data_ptr(), rnorms.data_ptr(),
-            qc_dots.data_ptr(), qn2.data_ptr(), out.data_ptr(),
-            q, np_, s, k, pmax, stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"adc_scan_kernel launch failed: {lib.adc_scan_error_string(err).decode()} ({err})"
-        )
+    launch(
+        "adc_scan",
+        [probe_ids.data_ptr(), dlut.data_ptr(), codes.data_ptr(), rnorms.data_ptr(),
+         qc_dots.data_ptr(), qn2.data_ptr(), out.data_ptr()],
+        [q, np_, s, k, pmax], dev,
+    )
     launch_counts["ivf_pq_adc_scan"] += 1
     return out
 

@@ -11,6 +11,11 @@ carries a hash of the source, so an edited source never loads a stale
 library. Nothing builds at import time: ``load(name)`` builds on first
 use, and ``build_all()`` starts one nvcc per source at once. A failed
 build raises with nvcc's own message.
+
+Each source exports ``<name>_launch(pointers..., ints..., stream)``,
+returning a CUDA error code, and ``<name>_error_string(code)``;
+``launch()`` calls the first on PyTorch's current stream and raises with
+the second.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -35,6 +42,16 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 # ptxas report (registers, shared memory, spills) of each build, by source
 build_logs: dict[str, str] = {}
+
+# launches of each kernel, counted by its wrapper where it launches it
+launch_counts: dict[str, int] = {
+    "ivf_pq_adc_scan": 0, "ivf_flat_grouped_scan": 0, "ivf_flat_scan": 0,
+}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
 
 
 def sources() -> list[str]:
@@ -101,3 +118,22 @@ def load(name: str) -> ctypes.CDLL:
             _finish(name, target, st)
             lib = _libs[name] = ctypes.CDLL(str(target))
     return lib
+
+
+def launch(name: str, ptrs: list[int], ints: list[int], device: torch.device) -> None:
+    """Launch the kernel of ``csrc/<name>.cu`` on ``device``'s current
+    stream: ``ptrs`` are ``data_ptr()`` values, ``ints`` the C ints after
+    them. Raises if the launch is refused."""
+    lib = load(name)
+    fn = getattr(lib, f"{name}_launch")
+    if fn.argtypes is None:  # ctypes would cut 64-bit pointers without them
+        fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    with torch.cuda.device(device):
+        code = fn(*ptrs, *ints, torch.cuda.current_stream(device).cuda_stream)
+    if code != 0:
+        msg = getattr(lib, f"{name}_error_string")(code).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")

@@ -1,4 +1,5 @@
-"""Shared helpers for the device ops: padding arithmetic and dtype policy."""
+"""Shared helpers for the device ops: padding arithmetic, dtype policy,
+argument checks for the kernels and the pair grouping of the probed scans."""
 
 from __future__ import annotations
 
@@ -41,3 +42,56 @@ def round_up(x: int, m: int) -> int:
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def check_tensor(t: torch.Tensor, name: str, dtypes, shape: tuple, device) -> None:
+    """Raise unless ``t`` is a contiguous tensor of one of ``dtypes`` with
+    ``shape`` on ``device``: what a kernel's C interface takes."""
+    dtypes = dtypes if isinstance(dtypes, tuple) else (dtypes,)
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {' or '.join(map(str, dtypes))}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def group_probe_pairs(probe_ids: torch.Tensor, p: int, qpc: int):
+    """Sort the (query, probe) pairs by partition id and pad each
+    partition's run to a multiple of ``qpc``, so that every group of qpc
+    consecutive slots shares ONE partition and reads its block once
+    (the reference's ops/util.py ``group_probe_pairs``, element for
+    element; the sort is stable, as ``jnp.argsort`` is).
+
+    Returns ``(gpid, qidx, slot, order, g, spad)``:
+      gpid (G,) int32: partition per group (tail groups repeat the last
+        real pid);
+      qidx (SPAD,) int32: query index per padded slot (0 for padding);
+      slot (S,) int32: padded-layout position of each sorted pair;
+      order (S,) int32: pair indices sorted by pid;
+      g, spad: group and slot counts, bounds fixed by the shapes."""
+    q, np_ = probe_ids.shape
+    s = q * np_
+    dev = probe_ids.device
+    flat = probe_ids.reshape(-1).long()
+    order = torch.argsort(flat, stable=True)
+    spids = flat[order]
+    is_start = torch.ones(s, dtype=torch.bool, device=dev)
+    is_start[1:] = spids[1:] != spids[:-1]
+    ar = torch.arange(s, device=dev)
+    start_idx = torch.cummax(torch.where(is_start, ar, 0), dim=0).values
+    rank = ar - start_idx  # rank within the pid run
+    counts = torch.bincount(flat, minlength=p)
+    padded = (counts + qpc - 1) // qpc * qpc
+    poff = torch.cumsum(padded, dim=0) - padded
+    slot = poff[spids] + rank  # position in the padded layout
+    # at most min(P, S) partitions are probed, each padded by < qpc slots
+    spad = (s + min(p, s) * (qpc - 1) + qpc - 1) // qpc * qpc
+    g = spad // qpc
+    qidx = torch.zeros(spad, dtype=torch.int32, device=dev)
+    qidx[slot] = (order // np_).to(torch.int32)
+    gpid = spids[-1:].to(torch.int32).repeat(g)  # stays on the device, no sync
+    gpid[slot // qpc] = spids.to(torch.int32)
+    return gpid, qidx, slot.to(torch.int32), order.to(torch.int32), g, spad

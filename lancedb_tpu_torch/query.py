@@ -2,7 +2,7 @@
 
 Port of the vector-search part of the reference's query.py:
 
-  1. resolve the vector column and its IVF_PQ index; compute the
+  1. resolve the vector column and its index (FLAT, IVF_FLAT, IVF_PQ); compute the
      prefilter row-id set from the SQL predicate (host, Arrow compute)
   2. device search over the indexed fragments + brute force over
      unindexed "delta" fragments, merged on the host
@@ -49,6 +49,7 @@ class VectorQueryRequest:
     minimum_nprobes: int = DEFAULT_NPROBES
     maximum_nprobes: int | None = DEFAULT_NPROBES
     refine_factor: int | None = None
+    precision: str = "default"  # FLAT scans and the brute force of delta rows
     select: list[str] | None = None
 
 
@@ -96,11 +97,15 @@ def execute_vector_query(table, req: VectorQueryRequest) -> pa.Table:
         pen = searcher.slot_penalty(allowed, deleted, vanished_fragments=vanished)
         if req.refine_factor is not None:
             # fused device refine when a resident copy of the column fits;
-            # search() then returns already-refined results
-            searcher.prepare_device_refine(ds, column)
+            # search() then returns already-refined results. A
+            # float32-precision request uploads an exact f32 table.
+            searcher.prepare_device_refine(
+                ds, column, precision="float32" if req.precision == "float32" else None
+            )
 
         def run(nprobes: int):
-            params = SearchParams(k=req.k, nprobes=nprobes, refine_factor=req.refine_factor)
+            params = SearchParams(k=req.k, nprobes=nprobes, refine_factor=req.refine_factor,
+                                  precision=req.precision)
             d, r = searcher.search(queries, params, slot_penalty=pen)
             if req.refine_factor is not None and not searcher.will_fuse_refine(params):
                 d, r = searcher.refine(ds, column, queries, d, r, req.k)
@@ -169,6 +174,7 @@ def _brute_force_fragments(table, column, queries, req, metric, frags):
         )
     d, r = brute_force_search(
         np.concatenate(mats), np.concatenate(rids), queries, min(k, n), metric,
+        precision="bfloat16" if req.precision == "bfloat16" else "float32",
         device=table._device,
     )
     if d.shape[1] < k:
@@ -227,7 +233,7 @@ class LanceVectorQueryBuilder(NotPortedSurface):
         **dict.fromkeys(
             ("offset", "with_row_id", "with_row_address", "postfilter", "filter", "metric",
              "distance_type", "distance_range", "bypass_vector_index", "fast_search", "ef",
-             "precision", "vector", "column", "order_by", "fragment_ids", "with_fragments",
+             "vector", "column", "order_by", "fragment_ids", "with_fragments",
              "to_batches", "to_pandas", "to_polars", "to_df", "to_table", "to_pyarrow",
              "to_json", "to_reader", "to_pydantic", "output_schema", "to_query_object",
              "explain_plan", "analyze_plan"),
@@ -280,6 +286,11 @@ class LanceVectorQueryBuilder(NotPortedSurface):
 
     def refine_factor(self, rf: int) -> "LanceVectorQueryBuilder":
         self._req.refine_factor = int(rf)
+        return self
+
+    def precision(self, p: str) -> "LanceVectorQueryBuilder":
+        """FLAT scan precision: 'default' (two-pass), 'float32' or 'bfloat16'."""
+        self._req.precision = p
         return self
 
     def to_arrow(self) -> pa.Table:

@@ -1,7 +1,8 @@
 """Table API: the user-facing handle over one versioned dataset.
 
-Port of the slice of the reference's table.py that the main path runs:
-add, delete, count_rows, create_index (IVF_PQ) and search. The device
+Port of the slice of the reference's table.py that the ported paths
+run: add, delete, count_rows, create_index (FLAT, IVF_FLAT, IVF_PQ) and
+search. The device
 chosen at ``connect()`` travels from the connection to every index
 build and searcher of the table. The rest of the reference's surface
 raises NotImplementedError naming its ROADMAP item.
@@ -17,7 +18,7 @@ from ._surface import NotPortedSurface
 from .arrow import sanitize_vectors, to_arrow_table
 from .arrow import vector_column_name as _vector_column_name
 from .errors import InvalidInputError
-from .index import IvfPq
+from .index import Flat, IvfFlat, IvfPq
 from .query import LanceVectorQueryBuilder
 from .storage.dataset import Dataset
 
@@ -140,26 +141,39 @@ class Table(NotPortedSurface):
         sample_rate: int = 256,
         max_iterations: int = 50,
         *,
-        config: IvfPq | None = None,
+        config: IvfPq | IvfFlat | Flat | None = None,
         name: str | None = None,
     ) -> None:
-        """Build an IVF_PQ vector index on the connection's device
-        (reference table.py:2604 create_index)."""
-        from .index.vector import _not_ported, build_vector_index
+        """Build a FLAT, IVF_FLAT or IVF_PQ vector index on the
+        connection's device (reference table.py:2604 create_index). The
+        other index types raise, naming their ROADMAP item (IVF_SQ and
+        IVF_RQ: A7; HNSW: A8)."""
+        from .index.vector import PORTED_INDEX_TYPES, _not_ported, build_vector_index
 
         column = vector_column_name or _vector_column_name(self.schema)
         if config is None:
-            if index_type.upper() != "IVF_PQ":
-                raise _not_ported(index_type.upper())
-            config = IvfPq(
-                distance_type=metric,
-                num_partitions=num_partitions,
-                num_sub_vectors=num_sub_vectors,
-                num_bits=num_bits,
-                sample_rate=sample_rate,
-                max_iterations=max_iterations,
-            )
-        if config.index_type != "IVF_PQ":
+            it = index_type.upper()
+            if it == "IVF_PQ":
+                config = IvfPq(
+                    distance_type=metric,
+                    num_partitions=num_partitions,
+                    num_sub_vectors=num_sub_vectors,
+                    num_bits=num_bits,
+                    sample_rate=sample_rate,
+                    max_iterations=max_iterations,
+                )
+            elif it == "IVF_FLAT":
+                config = IvfFlat(
+                    distance_type=metric,
+                    num_partitions=num_partitions,
+                    sample_rate=sample_rate,
+                    max_iterations=max_iterations,
+                )
+            elif it == "FLAT":
+                config = Flat(distance_type=metric)
+            else:
+                raise _not_ported(it)
+        if config.index_type not in PORTED_INDEX_TYPES:
             raise _not_ported(config.index_type)
         meta = build_vector_index(
             self._dataset, column, config, name=name or f"{column}_idx", device=self._device

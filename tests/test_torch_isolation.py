@@ -19,7 +19,7 @@ sys.modules["jax"] = None          # any import of jax now fails
 sys.modules["lancedb_tpu"] = None  # and so does any import of the reference
 import numpy as np, pyarrow as pa
 import lancedb_tpu_torch
-from lancedb_tpu_torch.index import IvfPq
+from lancedb_tpu_torch.index import IvfFlat, IvfPq
 
 rng = np.random.default_rng(0)
 x = rng.standard_normal((600, 16)).astype(np.float32)
@@ -29,6 +29,9 @@ tbl = lancedb_tpu_torch.connect(sys.argv[1], device="cpu").create_table("t", pa.
 tbl.create_index(config=IvfPq(num_partitions=4, num_sub_vectors=4, num_bits=4, max_iterations=5))
 out = tbl.search(x[7] + 0.01).nprobes(4).refine_factor(10).limit(3).to_arrow()
 assert out["id"][0].as_py() == 7, out
+tbl.create_index(config=IvfFlat(num_partitions=4, max_iterations=5))
+out = tbl.search(x[9] + 0.01).nprobes(2).limit(3).to_arrow()
+assert out["id"][0].as_py() == 9, out
 assert not any(m == "jax" or m.startswith(("jax.", "lancedb_tpu."))
                for m, mod in sys.modules.items() if mod is not None)
 print("ok")
