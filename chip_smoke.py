@@ -9,13 +9,18 @@ Phases:
   1. card: the card's name and power limit (nvidia-smi) and torch's name.
   2. kernels: build every CUDA source under lancedb_tpu_torch/csrc (one
      nvcc per source, all started together), then hold the ADC scan
-     kernel (B1) against its plain torch version at SIFT1M shapes
-     (1024 partitions, pmax 1152, 128 queries, 20 probes) for 8-bit x16
-     and 4-bit x32 codes, with padding and penalty slots, and time both.
+     kernel (B1) and the grouped ADC scan kernel (B3, at qpc 8 and 16)
+     against their plain torch versions at SIFT1M shapes (1024
+     partitions, pmax 1152, 128 queries, 20 probes) for 8-bit x16 and
+     4-bit x32 codes, with padding and penalty slots, and time them.
      It also holds the grouped and the per-pair IVF_FLAT scan kernels
      (B2, B4) against their plain version at the IVF_FLAT path's shapes
      (1402 blocks of pmax 1224, D 128, 128 queries, 27 probes), for f32
      and bf16 storage and the l2, cosine and dot forms, and times them.
+     Then it drives the probes of the ADC inner loop (S1, both designs,
+     lancedb_tpu_torch.probes.ab_adc8) and of the shared-memory gather
+     (S2, its eight shapes, probes.ab_gather_min), each with the launch
+     counts set to 0 just before it and read just after.
   3. main path, at SIFT1M scale: connect() on the default device →
      create_table with 1,000,000 rows of 128-d clustered vectors (seed 0)
      plus id and category = id % 10, then three paths, each with the
@@ -26,7 +31,12 @@ Phases:
         After each index B1 is checked and timed on the inputs the
         searcher gives it for the first 128 queries, and one batch's time
         is broken down by layer (searcher, prefilter, slot penalty,
-        device busy time under torch.profiler).
+        device busy time under torch.profiler). Then the grouped route
+        (probes.probe_pq_real.full_grouped: probe selection, LUT, B3 at
+        qpc 8, top-k) serves the 256 queries in chunks of 128, with B3's
+        launches counted from 0 over it; its recall is held to the raw
+        bar, its top-10 compared with the per-pair (B1) route's, and B3
+        checked and timed on the searcher's inputs beside B1.
      b. create_index(IVF_FLAT, 1024 partitions) → search at nprobes 8, 20
         and 64, at 20 with the filter, and at 20 with refine_factor 10
         (the host refine); B2 and B4 checked and timed on the inputs the
@@ -36,6 +46,10 @@ Phases:
      c. create_index(FLAT) → search in precision float32, bfloat16 and
         the default two-pass.
      Ground truth is exact f32 on the card; every recall bar is checked.
+  4. probes: probes.probe_adc_grouped (B3 at qpc 8 and 16 against B1 and
+     the one-hot einsum at P 1024, pmax 1024, 128 queries, 20 clustered
+     probes), with the launch counts set to 0 just before it and read
+     just after.
 
 Prints, on lines before the last, the card's name and power limit, a
 ``kernels:`` line and one JSON object ``{"kernels": [...]}``; the last
@@ -47,7 +61,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import tempfile
 import time
@@ -58,14 +71,23 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
-ADC_SOURCE = "lancedb_tpu_torch/csrc/adc_scan.cu"
-ADC_REPLACES = "lancedb_tpu/ops/pallas_adc.py:126"
-FLAT_KERNELS = {  # kind: (name, source, the TPU kernel it replaces)
-    "grouped": ("ivf_flat_grouped_scan", "lancedb_tpu_torch/csrc/ivf_flat_group_scan.cu",
-                "lancedb_tpu/ops/pallas_group_scan.py:66"),
-    "pair": ("ivf_flat_scan", "lancedb_tpu_torch/csrc/ivf_flat_scan.cu",
-             "lancedb_tpu/ops/pallas_scan.py:53"),
+KERNELS = {  # launch counter: (id, source, the TPU kernel it replaces)
+    "ivf_pq_adc_scan": ("B1", "lancedb_tpu_torch/csrc/adc_scan.cu",
+                        "lancedb_tpu/ops/pallas_adc.py:126"),
+    "ivf_flat_grouped_scan": ("B2", "lancedb_tpu_torch/csrc/ivf_flat_group_scan.cu",
+                              "lancedb_tpu/ops/pallas_group_scan.py:66"),
+    "ivf_pq_adc_grouped_scan": ("B3", "lancedb_tpu_torch/csrc/adc_grouped_scan.cu",
+                                "lancedb_tpu/ops/pallas_adc.py:278"),
+    "ivf_flat_scan": ("B4", "lancedb_tpu_torch/csrc/ivf_flat_scan.cu",
+                      "lancedb_tpu/ops/pallas_scan.py:53"),
+    "adc_sum_select": ("S1 select", "lancedb_tpu_torch/csrc/adc_sum_ab.cu",
+                       "scripts/ab_adc8.py:59"),
+    "adc_sum_gather": ("S1 gather", "lancedb_tpu_torch/csrc/adc_sum_ab.cu",
+                       "scripts/ab_adc8.py:59"),
+    "smem_gather": ("S2", "lancedb_tpu_torch/csrc/smem_gather.cu",
+                    "scripts/ab_gather_min.py:11"),
 }
+FLAT_COUNTERS = {"grouped": "ivf_flat_grouped_scan", "pair": "ivf_flat_scan"}
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
 # the reference's recall@10 at 1M x 128, 1024 partitions, nprobes 20
@@ -80,65 +102,16 @@ FLAT_RECALL_BARS = {
 }
 
 
-def make_clustered(rng, n, dim, n_coarse=4096, n_parents=65_536, n_queries=256):
-    """Hierarchical clustered data + queries near existing parents: the
-    generator of the reference's bench.py, so recall means the same."""
-    spectrum = (np.arange(dim) + 1.0) ** -0.5
-    spectrum = (spectrum / np.linalg.norm(spectrum) * np.sqrt(dim)).astype(np.float32)
-    coarse = rng.standard_normal((n_coarse, dim)).astype(np.float32)
-    parents = coarse[rng.integers(0, n_coarse, n_parents)] + 0.45 * rng.standard_normal(
-        (n_parents, dim)
-    ).astype(np.float32)
-    pa_ = rng.integers(0, n_parents, n)
-    x = (parents[pa_] + 0.18 * rng.standard_normal((n, dim)).astype(np.float32)) * spectrum
-    qp = rng.integers(0, n_parents, n_queries)
-    q = (parents[qp] + 0.18 * rng.standard_normal((n_queries, dim)).astype(np.float32)) * spectrum
-    return x.astype(np.float32), q.astype(np.float32)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int = 20) -> float:
-    """Median of ``reps`` single-call CUDA-event timings, after a warm-up."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def compare(got, want, label: str) -> float:
-    """Entries >= 1.5e38 (padding, penalties, inf) at the same positions,
-    the rest within rtol 1e-5 + atol 1e-4 x max|finite|: the kernels sum
-    in another order than the plain version. Returns max|err|."""
-    import torch
-
-    torch.cuda.synchronize()
-    big_got, big_want = got >= 1.5e38, want >= 1.5e38
-    if not torch.equal(big_got, big_want):
-        raise AssertionError(f"{label}: padded/penalized entries differ in position")
-    fin = ~big_want
-    g, w = got[fin], want[fin]
-    max_abs = float((g - w).abs().max()) if g.numel() else 0.0
-    atol = 1e-4 * float(w.abs().max()) if w.numel() else 0.0
-    if not torch.allclose(g, w, rtol=1e-5, atol=atol):
-        raise AssertionError(f"{label}: kernel disagrees with plain version, max|err|={max_abs}")
-    return max_abs
+def kernel_record(counter: str, name: str, max_abs: float, ms: float, plain_ms: float,
+                  bytes_ms: float, ops_ms: float, library_ms=None, launches=None, **extra) -> dict:
+    """One kernel's record with every key of KERNEL_KEYS, then ``extra``."""
+    _, source, replaces = KERNELS[counter]
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else
+        "operations", "library_ms": library_ms, "counter": counter, **extra,
+    }
 
 
 def check_flat(kind: str, args, label: str) -> dict:
@@ -148,8 +121,9 @@ def check_flat(kind: str, args, label: str) -> dict:
 
     from lancedb_tpu_torch.ops import flat_scan
     from lancedb_tpu_torch.ops.cuda_build import launch_counts
+    from lancedb_tpu_torch.probes.common import compare, cuda_ms
 
-    name, source, replaces = FLAT_KERNELS[kind]
+    counter = FLAT_COUNTERS[kind]
     fn = flat_scan.ivf_flat_grouped_scan if kind == "grouped" else flat_scan.ivf_flat_scan
     saved = dict(launch_counts)  # comparison launches do not count
     max_abs = compare(fn(*args), flat_scan.ivf_flat_scan_reference(*args), label)
@@ -177,23 +151,13 @@ def check_flat(kind: str, args, label: str) -> dict:
         + probe_ids.numel() * 4 + 2 * q * 4 + q * np_ * pmax * 4
     )
     ops = q * np_ * pmax * (2 * d + 3)  # D FMAs and the affine epilogue per slot
-    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    rec = {
-        "name": f"{name} ({str(vectors.dtype).replace('torch.', '')} storage)",
-        "route": "cuda",
-        "source": source,
-        "replaces": replaces,
-        "launches": None,
-        "max_abs_err": max_abs,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,  # no single PyTorch call computes a probed scan
-        **extra,
-        "shape": {"Q": q, "NP": np_, "P": int(vectors.shape[0]), "pmax": pmax, "D": d,
-                  "probed_partitions": n_parts},
-    }
+    # library_ms None: no single PyTorch call computes a probed scan
+    rec = kernel_record(
+        counter, f"{counter} ({str(vectors.dtype).replace('torch.', '')} storage)", max_abs,
+        ms, plain_ms, nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3, **extra,
+        shape={"Q": q, "NP": np_, "P": int(vectors.shape[0]), "pmax": pmax, "D": d,
+               "probed_partitions": n_parts},
+    )
     print(f"[kernel] {label}: {json.dumps(rec)}", flush=True)
     return rec
 
@@ -230,46 +194,84 @@ def synthetic_flat_args(metric: str, dtype, p=1402, pmax=1224, d=128, q=128, np_
             alpha.contiguous(), gamma.contiguous())
 
 
-def check_adc(args, label: str) -> dict:
-    """Hold the CUDA ADC kernel against the plain version on ``args``,
-    time both, and compute the bound. Raises on disagreement."""
+def adc_bound(args) -> tuple[float, float, dict]:
+    """(bytes ms, operations ms, shape) of the ADC scan's function on
+    ``args``, the same for B1 and B3: each probed partition's codes and
+    rnorms once, the LUTs, probe ids, q·c and |q|² once, the output once;
+    S LUT adds and the affine epilogue per output."""
     import torch
 
-    from lancedb_tpu_torch.ops import adc
-
     probe_ids, dlut, codes, rnorms, qc, qn2 = args
-    saved = dict(adc.launch_counts)  # comparison launches do not count
-    max_abs = compare(adc.ivf_pq_adc_scan(*args), adc.ivf_pq_adc_scan_reference(*args), label)
-    ms = cuda_ms(lambda: adc.ivf_pq_adc_scan(*args))
-    plain_ms = cuda_ms(lambda: adc.ivf_pq_adc_scan_reference(*args))
-    adc.launch_counts.update(saved)
     q, np_ = probe_ids.shape
     _, s, pmax = codes.shape
-    k = dlut.shape[2]
-    # least bytes: each probed partition's codes and rnorms once, the
-    # LUTs, probe ids, q·c and |q|² once, the output once
     n_parts = int(torch.unique(probe_ids).numel())
     nbytes = (
         n_parts * (s * pmax + 4 * pmax) + dlut.numel() * 4 + probe_ids.numel() * 4
         + qc.numel() * 4 + qn2.numel() * 4 + q * np_ * pmax * 4
     )
-    ops = q * np_ * pmax * (s + 3)  # S LUT adds + the affine epilogue per slot
-    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    rec = {
-        "name": f"ivf_pq_adc_scan (K={k}, S={s})",
-        "route": "cuda",
-        "source": ADC_SOURCE,
-        "replaces": ADC_REPLACES,
-        "launches": None,
-        "max_abs_err": max_abs,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,  # no single PyTorch call computes the ADC scan
-        "shape": {"Q": q, "NP": np_, "P": int(codes.shape[0]), "S": s, "K": k, "pmax": pmax,
-                  "probed_partitions": n_parts},
-    }
+    ops = q * np_ * pmax * (s + 3)
+    shape = {"Q": q, "NP": np_, "P": int(codes.shape[0]), "S": s, "K": int(dlut.shape[2]),
+             "pmax": pmax, "probed_partitions": n_parts}
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3, shape
+
+
+def check_adc(args, label: str) -> dict:
+    """Hold the CUDA ADC kernel (B1) against the plain version on
+    ``args``, time both, and compute the bound. Raises on disagreement."""
+    from lancedb_tpu_torch.ops import adc
+    from lancedb_tpu_torch.probes.common import compare, cuda_ms
+
+    saved = dict(adc.launch_counts)  # comparison launches do not count
+    max_abs = compare(adc.ivf_pq_adc_scan(*args), adc.ivf_pq_adc_scan_reference(*args), label)
+    ms = cuda_ms(lambda: adc.ivf_pq_adc_scan(*args))
+    plain_ms = cuda_ms(lambda: adc.ivf_pq_adc_scan_reference(*args))
+    adc.launch_counts.update(saved)
+    bytes_ms, ops_ms, shape = adc_bound(args)
+    # library_ms None: no single PyTorch call computes the ADC scan
+    rec = kernel_record("ivf_pq_adc_scan", f"ivf_pq_adc_scan (K={shape['K']}, S={shape['S']})",
+                        max_abs, ms, plain_ms, bytes_ms, ops_ms, shape=shape)
+    print(f"[kernel] {label}: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def check_adc_grouped(args, qpc: int, label: str, b1_ms: float) -> dict:
+    """Hold the grouped ADC kernel (B3) at ``qpc`` against its plain
+    version on ``args`` (and, where K > 64 keeps the LUT in f32, against
+    B1), time both, the launch alone and the groups, and compute the
+    bound, which is B1's on the same inputs; ``b1_ms`` is B1's time on
+    them. Raises on disagreement."""
+    import torch
+
+    from lancedb_tpu_torch.ops import adc, flat_scan
+    from lancedb_tpu_torch.probes.common import compare, cuda_ms
+
+    probe_ids, dlut, codes = args[:3]
+    k = dlut.shape[2]
+    saved = dict(adc.launch_counts)  # comparison launches do not count
+    got = adc.ivf_pq_adc_grouped_scan(*args, qpc=qpc)
+    max_abs = compare(got, adc.ivf_pq_adc_grouped_scan_reference(*args), label)
+    extra = {}
+    if k > adc.SELECT_MAX_K:
+        extra["max_abs_err_vs_b1"] = compare(got, adc.ivf_pq_adc_scan(*args), f"{label} vs B1")
+    del got
+    ms = cuda_ms(lambda: adc.ivf_pq_adc_grouped_scan(*args, qpc=qpc))
+    plain_ms = cuda_ms(lambda: adc.ivf_pq_adc_grouped_scan_reference(*args), reps=3)
+    # the launch alone, without the grouping of the pairs (torch ops)
+    gpid, pair_of_slot, g = flat_scan.grouped_plan(probe_ids, codes.shape[0], qpc)
+    out = torch.empty((probe_ids.shape[0], probe_ids.shape[1], codes.shape[2]),
+                      device=codes.device)
+    kernel_only_ms = cuda_ms(lambda: adc.launch_adc_grouped(gpid, pair_of_slot, g, qpc, *args,
+                                                            out))
+    groups = int((pair_of_slot.view(g, qpc)[:, 0] >= 0).sum())
+    adc.launch_counts.update(saved)
+    bytes_ms, ops_ms, shape = adc_bound(args)
+    # library_ms None: no single PyTorch call computes the ADC scan
+    rec = kernel_record(
+        "ivf_pq_adc_grouped_scan",
+        f"ivf_pq_adc_grouped_scan (K={k}, S={shape['S']}, qpc={qpc})", max_abs, ms, plain_ms,
+        bytes_ms, ops_ms, b1_ms=b1_ms, kernel_only_ms=kernel_only_ms, groups=groups,
+        lut_bf16=k <= adc.SELECT_MAX_K, **extra, shape=shape,
+    )
     print(f"[kernel] {label}: {json.dumps(rec)}", flush=True)
     return rec
 
@@ -295,21 +297,13 @@ def synthetic_adc_args(k: int, s: int, p=1024, pmax=1152, q=128, np_=20, seed=0)
 
 
 def searcher_adc_args(searcher, queries: np.ndarray, nprobes: int = 20):
-    """The kernel's inputs for one search chunk, as VectorSearcher.search
-    forms them (l2, no filter)."""
+    """The ADC kernels' inputs for the first 128 queries, as
+    VectorSearcher.search forms them (l2, no filter)."""
     import torch
 
-    from lancedb_tpu_torch.index.vector import _pq_dlut, _select_probes
+    from lancedb_tpu_torch.probes.probe_pq_real import grouped_inputs
 
-    dev = searcher._device
-    q = torch.from_numpy(queries[:128]).cuda()
-    logical = searcher.params.get("num_logical_partitions", searcher.nparts)
-    npb = min(searcher.nparts, max(1, int(np.ceil(nprobes * searcher.nparts / logical))))
-    probe_ids, probe_dots = _select_probes(q, dev["centroids"], npb, searcher.metric)
-    dlut = _pq_dlut(q, dev["codebooks"], dev["codes"].shape[1])
-    qn2 = torch.sum(torch.square(q), dim=-1)
-    return (probe_ids.to(torch.int32), dlut, dev["codes"], dev["rnorms"],
-            probe_dots.contiguous(), qn2.contiguous())
+    return grouped_inputs(searcher, torch.from_numpy(queries[:128]).cuda(), nprobes)
 
 
 def searcher_flat_args(searcher, queries: np.ndarray, nprobes: int = 20):
@@ -318,12 +312,12 @@ def searcher_flat_args(searcher, queries: np.ndarray, nprobes: int = 20):
     import torch
 
     from lancedb_tpu_torch.index.vector import _flat_coefs, _select_probes
+    from lancedb_tpu_torch.probes.probe_pq_real import block_nprobes
 
     dev = searcher._device
     q = torch.from_numpy(queries[:128]).cuda()
-    logical = searcher.params.get("num_logical_partitions", searcher.nparts)
-    npb = min(searcher.nparts, max(1, int(np.ceil(nprobes * searcher.nparts / logical))))
-    probe_ids, _ = _select_probes(q, dev["centroids"], npb, searcher.metric)
+    probe_ids, _ = _select_probes(q, dev["centroids"], block_nprobes(searcher, nprobes),
+                                  searcher.metric)
     alpha, gamma, norms = _flat_coefs(q, dev["norms2"], dev["pad_pen"], searcher.metric)
     return (probe_ids.to(torch.int32), q, dev["vectors"], norms.contiguous(),
             alpha.contiguous(), gamma.contiguous())
@@ -466,6 +460,7 @@ def ivf_flat_path(tbl, queries, gt, gt_f, card: str) -> tuple[dict, list[dict]]:
     from lancedb_tpu_torch.index import IvfFlat
     from lancedb_tpu_torch.index.vector import _ivf_full_scan
     from lancedb_tpu_torch.ops.cuda_build import launch_counts, reset_launch_counts
+    from lancedb_tpu_torch.probes.common import cuda_ms
 
     k = 10
     torch.cuda.reset_peak_memory_stats()
@@ -552,6 +547,44 @@ def flat_path(tbl, queries, gt, card: str) -> dict:
     return rec
 
 
+def grouped_route(tbl, searcher, queries, gt, tag: str, bar: float, b1_ms: float):
+    """The grouped route (probe selection → LUT → B3 at qpc 8 → top-k) on
+    the searcher's device arrays for every query, in chunks of 128, with
+    B3's launches counted from 0 over it; then its recall@10, the overlap
+    of its top-10 with the per-pair (B1) route's, and B3 held to its plain
+    version on the searcher's inputs. Raises if B3 was not launched or
+    the recall is below ``bar``."""
+    import torch
+
+    from lancedb_tpu_torch.ops.cuda_build import launch_counts, reset_launch_counts
+    from lancedb_tpu_torch.probes.probe_pq_real import full_grouped, overlap, per_pair
+
+    chunks = [torch.from_numpy(queries[i : i + 128]).cuda() for i in range(0, len(queries), 128)]
+    reset_launch_counts()
+    t = time.perf_counter()
+    routed = [full_grouped(searcher, q, qpc=8) for q in chunks]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = launch_counts["ivf_pq_adc_grouped_scan"]
+    b1_slots = torch.cat([per_pair(searcher, q)[1] for q in chunks])
+    vals = torch.cat([v for v, _ in routed]).cpu().numpy()
+    slots = torch.cat([s for _, s in routed])
+    rids = searcher.row_ids_flat[slots.cpu().numpy()]
+    rids[vals >= 1.5e38] = np.iinfo(np.uint64).max  # fell off the index
+    ids = rowids_to_ids(tbl, rids)
+    rec = {"recall@10": recall(ids, gt), "top10_overlap_with_b1_route": overlap(slots, b1_slots),
+           "ms_per_256q_host_clock": ms, "b3_launches": launches}
+    krec = check_adc_grouped(searcher_adc_args(searcher, queries), 8, f"{tag} B3 main-path shapes",
+                             b1_ms)
+    krec["launches"] = launches
+    print(f"[main] {tag} grouped route: {json.dumps(rec)}", flush=True)
+    if launches <= 0:
+        raise AssertionError(f"{tag}: B3 was not launched on the grouped route")
+    if rec["recall@10"] < bar:
+        raise AssertionError(f"{tag}: grouped-route recall {rec['recall@10']} < {bar}")
+    return rec, krec
+
+
 def exact_gt(x_d, xn2_d, q: np.ndarray, k: int, mask_d=None) -> np.ndarray:
     """Exact f32 top-k l2 on the card (TF32 off), optionally over a row mask."""
     import torch
@@ -570,6 +603,7 @@ def main_path(card: str) -> tuple[dict, list[dict]]:
     import lancedb_tpu_torch
     from lancedb_tpu_torch.index import IvfPq
     from lancedb_tpu_torch.ops import adc
+    from lancedb_tpu_torch.probes.common import make_clustered
 
     assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must stay off for exact f32"
     n, dim, nq, k = 1_000_000, 128, 256, 10
@@ -647,6 +681,9 @@ def main_path(card: str) -> tuple[dict, list[dict]]:
             kernels.append(krec)
             rec["breakdown"] = breakdown(tbl, searcher, queries)
             print(f"[main] {tag} breakdown ({card}): {json.dumps(rec['breakdown'])}", flush=True)
+            rec["grouped_route"], grec = grouped_route(tbl, searcher, queries, gt, tag,
+                                                       RAW_RECALL_BARS[nbits] - 0.03, krec["ms"])
+            kernels.append(grec)
             # the quality bars
             if launches <= 0:
                 raise AssertionError(f"{tag}: the ADC kernel was not launched on the search path")
@@ -669,6 +706,73 @@ def main_path(card: str) -> tuple[dict, list[dict]]:
     return results, kernels
 
 
+def probe_kernel_records() -> list[dict]:
+    """Drive the probes of S1 (ab_adc8: both designs at both codings) and
+    S2 (ab_gather_min: eight shapes), each with the launch counts set to
+    0 just before it and read just after; one record per S1 design and
+    coding and per S2 shape. The probes hold each kernel to its plain
+    version and time both; the bound is the function's: S1 reads each
+    partition's codes once (cell c reads partition c mod P), the LUTs once
+    and writes its (cells, pmax) output, with S adds per output; S2 reads
+    its table and index once and writes its output."""
+    from lancedb_tpu_torch.ops.cuda_build import launch_counts, reset_launch_counts
+    from lancedb_tpu_torch.probes import ab_adc8, ab_gather_min
+
+    reset_launch_counts()
+    s1 = ab_adc8.run()
+    s1_counts = dict(launch_counts)
+    reset_launch_counts()
+    s2 = ab_gather_min.run()
+    s2_counts = dict(launch_counts)
+    recs = []
+    for r in s1:
+        s_, k = r["S"], r["K"]
+        parts = min(ab_adc8.P, ab_adc8.NCELLS)
+        nbytes = (parts * s_ * ab_adc8.PMAX + ab_adc8.Q * s_ * k * 4
+                  + ab_adc8.NCELLS * ab_adc8.PMAX * 4)
+        ops = ab_adc8.NCELLS * ab_adc8.PMAX * s_
+        counter = f"adc_sum_{r['design']}"
+        # library_ms None: no single PyTorch call computes the LUT sum
+        recs.append(kernel_record(
+            counter, f"adc_sum {r['design']} ({r['bits']}-bit, S={s_}, K={k})", r["max_abs_err"],
+            r["ms_per_scan"], r["plain_ms"], nbytes / HBM_BYTES_PER_S * 1e3,
+            ops / F32_OPS_PER_S * 1e3, launches=s1_counts[counter], cell37_err=r["cell37_err"],
+        ))
+    for r in s2:
+        n = r["shape"][0] * r["shape"][1]
+        # the plain version is torch.take_along_dim, also the one library call
+        recs.append(kernel_record(
+            "smem_gather", f"smem_gather (shape {tuple(r['shape'])}, axis {r['axis']})", r["err"],
+            r["ms"], r["take_along_dim_ms"], 3 * n * 4 / HBM_BYTES_PER_S * 1e3, 0.0,
+            library_ms=r["take_along_dim_ms"], launches=s2_counts["smem_gather"],
+        ))
+    for counter, counts in (("adc_sum_select", s1_counts), ("adc_sum_gather", s1_counts),
+                            ("smem_gather", s2_counts)):
+        if counts[counter] <= 0:
+            raise AssertionError(f"{counter} was not launched by its probe")
+    for rec in recs:
+        print(f"[kernel] probe: {json.dumps(rec)}", flush=True)
+    return recs
+
+
+def probes_phase(card: str) -> dict:
+    """probes.probe_adc_grouped (B3 at qpc 8 and 16 against B1 and the
+    one-hot einsum), with the launch counts set to 0 just before it and
+    read just after. Raises if B1 or B3 was not launched."""
+    from lancedb_tpu_torch.ops.cuda_build import launch_counts, reset_launch_counts
+    from lancedb_tpu_torch.probes import probe_adc_grouped
+
+    reset_launch_counts()
+    records = probe_adc_grouped.run()
+    launches = {c: launch_counts[c] for c in ("ivf_pq_adc_scan", "ivf_pq_adc_grouped_scan")}
+    for rec in records:
+        print(f"[probe] probe_adc_grouped ({card}): {json.dumps(rec)}", flush=True)
+    print(f"[probe] probe_adc_grouped launches: {json.dumps(launches)}", flush=True)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"probe_adc_grouped did not launch B1 and B3: {launches}")
+    return {"records": records, "launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "kernels"), default="all")
@@ -685,6 +789,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     from lancedb_tpu_torch.ops import cuda_build
+    from lancedb_tpu_torch.probes.common import card_line
 
     t_start = time.perf_counter()
     card = card_line()
@@ -699,10 +804,14 @@ def main() -> int:
     for src, log in cuda_build.build_logs.items():
         print(f"[build] {src} ptxas:\n{log.strip()}", flush=True)
 
-    synthetic = [
-        check_adc(synthetic_adc_args(256, 16), "synthetic 8-bit x16"),
-        check_adc(synthetic_adc_args(16, 32), "synthetic 4-bit x32"),
-    ]
+    synthetic, grouped = [], []
+    for k, s in ((256, 16), (16, 32)):
+        args = synthetic_adc_args(k, s)
+        label = f"synthetic {8 if k == 256 else 4}-bit x{s}"
+        synthetic.append(check_adc(args, label))
+        grouped += [check_adc_grouped(args, qpc, f"{label} B3 qpc={qpc}", synthetic[-1]["ms"])
+                    for qpc in (8, 16)]
+        del args
     flat_checks = []
     for dtype in (torch.float32, torch.bfloat16):
         for metric in ("l2", "cosine", "dot"):
@@ -713,23 +822,29 @@ def main() -> int:
                 flat_checks.append(rec)
             del args
     torch.cuda.empty_cache()
-    summary: dict = {"synthetic_kernels": synthetic + flat_checks}
+    probe_kernels = probe_kernel_records()
+    summary: dict = {"synthetic_kernels": synthetic + grouped + flat_checks + probe_kernels}
     # the l2 records of each flat kernel and storage type go into the line
     flat_line = [r for r in flat_checks if r["metric"] == "l2"]
-    kernels = synthetic + flat_line
+    kernels = synthetic + grouped + flat_line
     if a.phase == "all":
-        results, kernels = main_path(card)
+        results, main_kernels = main_path(card)
         summary["main_path"] = results
-        counts = {r["source"]: r["launches"] for r in kernels}
-        for r in flat_line:  # launches on the main path, per kernel
-            r["launches"] = counts[r["source"]]
-        kernels = kernels + flat_line
+        summary["probes"] = probes_phase(card)
+        counts: dict = {}  # launches on the main path, per kernel
+        for r in main_kernels:
+            counts[r["counter"]] = counts.get(r["counter"], 0) + r["launches"]
+        for r in grouped + flat_line:
+            r["launches"] = counts[r["counter"]]
+        kernels = main_kernels + grouped + flat_line
+    kernels += probe_kernels
     summary["seconds"] = time.perf_counter() - t_start
     if a.out:
         Path(a.out).parent.mkdir(parents=True, exist_ok=True)
         Path(a.out).write_text(json.dumps(summary, indent=1))
     print(f"card: {card}", flush=True)
-    print('kernels: ["B1 ivf_pq_adc_scan", "B2 ivf_flat_grouped_scan", "B4 ivf_flat_scan"]',
+    print("kernels: " + json.dumps([f"{kid} {counter}" for counter, (kid, _, _) in
+                                    sorted(KERNELS.items(), key=lambda kv: kv[1][0])]),
           flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in KERNEL_KEYS} for r in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -45,7 +45,8 @@ build_logs: dict[str, str] = {}
 
 # launches of each kernel, counted by its wrapper where it launches it
 launch_counts: dict[str, int] = {
-    "ivf_pq_adc_scan": 0, "ivf_flat_grouped_scan": 0, "ivf_flat_scan": 0,
+    "ivf_pq_adc_scan": 0, "ivf_pq_adc_grouped_scan": 0, "ivf_flat_grouped_scan": 0,
+    "ivf_flat_scan": 0, "adc_sum_select": 0, "adc_sum_gather": 0, "smem_gather": 0,
 }
 
 

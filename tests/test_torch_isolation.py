@@ -17,9 +17,11 @@ _SMOKE = r"""
 import sys
 sys.modules["jax"] = None          # any import of jax now fails
 sys.modules["lancedb_tpu"] = None  # and so does any import of the reference
-import numpy as np, pyarrow as pa
+import numpy as np, pyarrow as pa, torch
 import lancedb_tpu_torch
 from lancedb_tpu_torch.index import IvfFlat, IvfPq
+from lancedb_tpu_torch.ops import adc_sum, ivf_pq_adc_grouped_scan, smem_gather
+from lancedb_tpu_torch.probes import ab_adc8, ab_gather_min, common, probe_adc_grouped, probe_pq_real
 
 rng = np.random.default_rng(0)
 x = rng.standard_normal((600, 16)).astype(np.float32)
@@ -32,6 +34,11 @@ assert out["id"][0].as_py() == 7, out
 tbl.create_index(config=IvfFlat(num_partitions=4, max_iterations=5))
 out = tbl.search(x[9] + 0.01).nprobes(2).limit(3).to_arrow()
 assert out["id"][0].as_py() == 9, out
+args = probe_adc_grouped.make_inputs(rng, 8, 16, "cpu", p=16, pmax=128, q=8, np_=3)
+assert ivf_pq_adc_grouped_scan(*args).shape == (8, 3, 128)
+assert adc_sum(args[1], args[2], 5, "select").shape == (5, 128)
+x, idx = ab_gather_min.make_inputs(8, 128, 1)
+assert smem_gather(torch.from_numpy(x), torch.from_numpy(idx), 1).shape == (8, 128)
 assert not any(m == "jax" or m.startswith(("jax.", "lancedb_tpu."))
                for m, mod in sys.modules.items() if mod is not None)
 print("ok")
