@@ -121,6 +121,7 @@ def check_flat(kind: str, args, label: str) -> dict:
 
     from lancedb_tpu_torch.ops import flat_scan
     from lancedb_tpu_torch.ops.cuda_build import launch_counts
+    from lancedb_tpu_torch.ops.util import grouped_plan
     from lancedb_tpu_torch.probes.common import compare, cuda_ms
 
     counter = FLAT_COUNTERS[kind]
@@ -133,7 +134,7 @@ def check_flat(kind: str, args, label: str) -> dict:
     if kind == "grouped":
         # the launch alone, without the grouping of the pairs (torch ops)
         probe_ids, queries, vectors, norms, alpha, gamma = args
-        gpid, pair_of_slot, g = flat_scan.grouped_plan(probe_ids, vectors.shape[0], 8)
+        gpid, pair_of_slot, g = grouped_plan(probe_ids, vectors.shape[0], 8)
         out = torch.empty((probe_ids.shape[0], probe_ids.shape[1], vectors.shape[1]),
                           device=vectors.device)
         extra["kernel_only_ms"] = cuda_ms(lambda: flat_scan.launch_grouped(
@@ -242,7 +243,8 @@ def check_adc_grouped(args, qpc: int, label: str, b1_ms: float) -> dict:
     them. Raises on disagreement."""
     import torch
 
-    from lancedb_tpu_torch.ops import adc, flat_scan
+    from lancedb_tpu_torch.ops import adc
+    from lancedb_tpu_torch.ops.util import grouped_plan
     from lancedb_tpu_torch.probes.common import compare, cuda_ms
 
     probe_ids, dlut, codes = args[:3]
@@ -257,7 +259,7 @@ def check_adc_grouped(args, qpc: int, label: str, b1_ms: float) -> dict:
     ms = cuda_ms(lambda: adc.ivf_pq_adc_grouped_scan(*args, qpc=qpc))
     plain_ms = cuda_ms(lambda: adc.ivf_pq_adc_grouped_scan_reference(*args), reps=3)
     # the launch alone, without the grouping of the pairs (torch ops)
-    gpid, pair_of_slot, g = flat_scan.grouped_plan(probe_ids, codes.shape[0], qpc)
+    gpid, pair_of_slot, g = grouped_plan(probe_ids, codes.shape[0], qpc)
     out = torch.empty((probe_ids.shape[0], probe_ids.shape[1], codes.shape[2]),
                       device=codes.device)
     kernel_only_ms = cuda_ms(lambda: adc.launch_adc_grouped(gpid, pair_of_slot, g, qpc, *args,
@@ -312,11 +314,10 @@ def searcher_flat_args(searcher, queries: np.ndarray, nprobes: int = 20):
     import torch
 
     from lancedb_tpu_torch.index.vector import _flat_coefs, _select_probes
-    from lancedb_tpu_torch.probes.probe_pq_real import block_nprobes
 
     dev = searcher._device
     q = torch.from_numpy(queries[:128]).cuda()
-    probe_ids, _ = _select_probes(q, dev["centroids"], block_nprobes(searcher, nprobes),
+    probe_ids, _ = _select_probes(q, dev["centroids"], searcher._block_nprobes(nprobes),
                                   searcher.metric)
     alpha, gamma, norms = _flat_coefs(q, dev["norms2"], dev["pad_pen"], searcher.metric)
     return (probe_ids.to(torch.int32), q, dev["vectors"], norms.contiguous(),

@@ -845,6 +845,14 @@ class VectorSearcher:
         return True
 
     # ---- search --------------------------------------------------------
+    def _block_nprobes(self, nprobes: int) -> int:
+        """The user's per-partition nprobes in blocks: fat logical
+        partitions were split into duplicate-centroid blocks at build
+        (_balanced_layout), so nprobes is rescaled to block granularity."""
+        logical = self.params.get("num_logical_partitions", self.nparts)
+        scale = self.nparts / max(1, logical)
+        return min(self.nparts, max(1, int(np.ceil(nprobes * scale))))
+
     def search(
         self,
         queries: np.ndarray,
@@ -861,14 +869,7 @@ class VectorSearcher:
             q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-30)
         k_eff = params.k if params.refine_factor is None else params.k * params.refine_factor
         k_eff = min(k_eff, self.num_slots)
-        nprobes = 0
-        if self.index_type != "FLAT":
-            # nprobes is block-granular: fat logical partitions were split
-            # into duplicate-centroid blocks at build (_balanced_layout),
-            # so rescale the user's per-partition nprobes to blocks
-            logical = self.params.get("num_logical_partitions", self.nparts)
-            scale = self.nparts / max(1, logical)
-            nprobes = min(self.nparts, max(1, int(np.ceil(params.nprobes * scale))))
+        nprobes = 0 if self.index_type == "FLAT" else self._block_nprobes(params.nprobes)
         pen = None if slot_penalty is None else _to_device(slot_penalty, self.device)
         fused = self.will_fuse_refine(params)
         dev = self._device

@@ -17,7 +17,6 @@ from .kmeans import (
     kmeanspp_init_device,
 )
 from .pq import default_num_sub_vectors, pq_build_device
-from .probe_kernels import adc_sum, adc_sum_reference, smem_gather, smem_gather_reference
 from .topk import mask_and_topk, merge_topk, topk_smallest
 
 __all__ = [
@@ -40,10 +39,6 @@ __all__ = [
     "kmeanspp_init_device",
     "default_num_sub_vectors",
     "pq_build_device",
-    "adc_sum",
-    "adc_sum_reference",
-    "smem_gather",
-    "smem_gather_reference",
     "mask_and_topk",
     "merge_topk",
     "topk_smallest",

@@ -26,10 +26,10 @@ import ctypes
 import numpy as np
 import torch
 
-from .cuda_build import launch, launch_counts, load, reset_launch_counts  # noqa: F401
-from .flat_scan import MAX_QPC, grouped_plan
+from .cuda_build import launch, launch_counts, load, max_smem_bytes
+from .cuda_build import reset_launch_counts  # noqa: F401
+from .util import MAX_QPC, grouped_plan, round_up
 from .util import check_tensor as _check
-from .util import round_up
 
 # the index layout the reference's kernel requires, kept so both packages
 # read and write the same files: pmax a multiple of 128, S of 8
@@ -40,6 +40,8 @@ S_ALIGN = 8
 SELECT_MAX_K = 64
 # shared memory the grouped kernel gives the LUTs it stages at once
 GROUPED_LUT_BUDGET = 64 * 1024
+# bytes of gathered codes and partial sums one chunk of B3's plain version holds
+_CHUNK_BYTES = 1 << 28
 
 
 def ivf_pq_adc_scan_reference(
@@ -71,13 +73,6 @@ def ivf_pq_adc_scan_reference(
             + rnorms[pids].float()
         )
     return out
-
-
-def _max_smem_bytes() -> int:
-    """Shared memory one block may opt into on the current card."""
-    fn = load("adc_scan").adc_scan_max_smem_bytes
-    fn.argtypes, fn.restype = [], ctypes.c_int
-    return fn()
 
 
 def ivf_pq_adc_scan(
@@ -112,7 +107,7 @@ def ivf_pq_adc_scan(
     if q * np_ == 0 or pmax == 0:
         return out
     smem = s * k * 4
-    limit = _max_smem_bytes()
+    limit = max_smem_bytes()
     if smem > limit:
         raise ValueError(
             f"ADC LUT of {s}x{k} f32 needs {smem} bytes of shared memory; the card allows {limit}"
@@ -134,7 +129,6 @@ def ivf_pq_adc_grouped_scan_reference(
     rnorms: torch.Tensor,     # (P, pmax) f32, penalties pre-added
     qc_dots: torch.Tensor,    # (Q, NP) f32
     qn2: torch.Tensor,        # (Q,) f32
-    max_chunk_bytes: int = 1 << 28,
 ) -> torch.Tensor:
     """Plain torch version of B3's arithmetic, in pair order: the base
     qn2 − 2·qc in f32; the LUT rounded to bf16 when K ≤ SELECT_MAX_K (the
@@ -150,7 +144,7 @@ def ivf_pq_adc_grouped_scan_reference(
         lut = lut.bfloat16().float()
     base = qn2[:, None].float() - 2.0 * qc_dots.float()  # (Q, NP)
     out = torch.empty((q, np_, pmax), dtype=torch.float32, device=codes.device)
-    step = max(1, max_chunk_bytes // max(1, np_ * pmax * (s + 16)))
+    step = max(1, _CHUNK_BYTES // max(1, np_ * pmax * (s + 16)))
     pids_all = probe_ids.long()
     for q0 in range(0, q, step):
         q1 = min(q, q0 + step)
@@ -180,7 +174,7 @@ def launch_adc_grouped(gpid, pair_of_slot, g: int, qpc: int, probe_ids, dlut, co
     _, s, pmax = codes.shape
     k = dlut.shape[2]
     lpc, smem = _grouped_lpc(s, k, qpc)
-    limit = _max_smem_bytes()
+    limit = max_smem_bytes()
     if smem > limit:
         raise ValueError(
             f"grouped ADC scan at S={s}, K={k} needs {smem} bytes of shared memory for its "

@@ -138,3 +138,11 @@ def launch(name: str, ptrs: list[int], ints: list[int], device: torch.device) ->
     if code != 0:
         msg = getattr(lib, f"{name}_error_string")(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
+
+
+def max_smem_bytes() -> int:
+    """Shared memory one block may opt into on the current card, as the
+    CUDA runtime reports it (through ``csrc/adc_scan.cu``'s C entry)."""
+    fn = load("adc_scan").adc_scan_max_smem_bytes
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()

@@ -27,10 +27,7 @@ from __future__ import annotations
 import torch
 
 from .cuda_build import launch, launch_counts
-from .util import check_tensor, group_probe_pairs
-
-# most queries one group of the grouped kernel holds (its register tile)
-MAX_QPC = 32
+from .util import MAX_QPC, check_tensor, grouped_plan
 
 
 def ivf_flat_scan_reference(
@@ -59,19 +56,6 @@ def ivf_flat_scan_reference(
             + gamma[q0:q1, None, None].float()
         )
     return out
-
-
-def grouped_plan(probe_ids: torch.Tensor, p: int, qpc: int):
-    """What the grouped kernel reads from ``group_probe_pairs``:
-    (gpid (G,) int32, pair_of_slot (G·qpc,) int32, G). Slot i of group
-    i // qpc holds pair ``pair_of_slot[i]`` = q·NP + j, or −1 where the
-    group is padded. The kernel writes each real slot's row straight to
-    out[q, j] and never writes a padded one, which replaces the
-    reference's scatter back through ``slot`` and ``argsort(order)``."""
-    gpid, _, slot, order, g, spad = group_probe_pairs(probe_ids, p, qpc)
-    pair_of_slot = torch.full((spad,), -1, dtype=torch.int32, device=probe_ids.device)
-    pair_of_slot[slot.long()] = order
-    return gpid, pair_of_slot, g
 
 
 def _check_args(probe_ids, queries, vectors, norms, alpha, gamma) -> tuple[int, ...]:

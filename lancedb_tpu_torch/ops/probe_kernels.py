@@ -14,8 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from .adc import _max_smem_bytes
-from .cuda_build import launch, launch_counts
+from .cuda_build import launch, launch_counts, max_smem_bytes
 from .util import check_tensor
 
 ADC_SUM_DESIGNS = ("select", "gather")
@@ -55,7 +54,7 @@ def adc_sum(dlut: torch.Tensor, codes: torch.Tensor, ncells: int,
     check_tensor(codes, "codes", torch.uint8, (p, s, pmax), dev)
     if not 1 <= k <= 256:
         raise ValueError(f"codebook size {k} must be in [1, 256] for uint8 codes")
-    smem, limit = s * k * 4, _max_smem_bytes()
+    smem, limit = s * k * 4, max_smem_bytes()
     if smem > limit:
         raise ValueError(f"a {s}x{k} f32 LUT needs {smem} bytes of shared memory; the card "
                          f"allows {limit}")
@@ -88,7 +87,7 @@ def smem_gather(x: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
     s, w = x.shape
     check_tensor(x, "x", torch.float32, (s, w), dev)
     check_tensor(idx, "idx", torch.int32, (s, w), dev)
-    smem, limit = s * w * 4, _max_smem_bytes()
+    smem, limit = s * w * 4, max_smem_bytes()
     if smem > limit:
         raise ValueError(f"an ({s}, {w}) f32 table needs {smem} bytes of shared memory; the "
                          f"card allows {limit}")

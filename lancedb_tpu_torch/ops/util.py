@@ -7,6 +7,8 @@ import torch
 
 # +inf stand-in for masked entries (the reference's INF, ops/util.py:53)
 INF = 3.4e38
+# most queries one group of the grouped kernels holds (B2's register tile)
+MAX_QPC = 32
 
 
 def resolve_device(device) -> torch.device:
@@ -95,3 +97,16 @@ def group_probe_pairs(probe_ids: torch.Tensor, p: int, qpc: int):
     gpid = spids[-1:].to(torch.int32).repeat(g)  # stays on the device, no sync
     gpid[slot // qpc] = spids.to(torch.int32)
     return gpid, qidx, slot.to(torch.int32), order.to(torch.int32), g, spad
+
+
+def grouped_plan(probe_ids: torch.Tensor, p: int, qpc: int):
+    """What the grouped kernels (B2, B3) read from ``group_probe_pairs``:
+    (gpid (G,) int32, pair_of_slot (G·qpc,) int32, G). Slot i of group
+    i // qpc holds pair ``pair_of_slot[i]`` = q·NP + j, or −1 where the
+    group is padded. The kernel writes each real slot's row straight to
+    out[q, j] and never writes a padded one, which replaces the
+    reference's scatter back through ``slot`` and ``argsort(order)``."""
+    gpid, _, slot, order, g, spad = group_probe_pairs(probe_ids, p, qpc)
+    pair_of_slot = torch.full((spad,), -1, dtype=torch.int32, device=probe_ids.device)
+    pair_of_slot[slot.long()] = order
+    return gpid, pair_of_slot, g

@@ -18,13 +18,14 @@ import numpy as np
 import torch
 
 from ..ops.probe_kernels import ADC_SUM_DESIGNS, adc_sum, adc_sum_reference
-from .common import compare, cuda_ms, loop_ms, print_records, require_cuda
+from .common import compare, loop_ms, print_records, require_cuda
 
 Q, NP = 128, 20
 P, PMAX, PB = 1402, 1280, 256
 NCELLS = Q * NP
 CASES = ((8, 16, 256), (4, 32, 16))  # (bits, S, K)
 REPS = 10
+SEED = 0
 
 
 def make_inputs(rng, s: int, k: int, q=Q, p=P, pmax=PMAX):
@@ -42,19 +43,20 @@ def cell_error(out: np.ndarray, dlut: np.ndarray, codes: np.ndarray, c0: int = 3
     return float(np.abs(out[c0, :PB] - want.sum(0)).max())
 
 
-def run(seed: int = 0, reps: int = REPS) -> list[dict]:
+def run() -> list[dict]:
     """Both designs at both codings on the card; one record per
-    (coding, design)."""
+    (coding, design). The designs and the plain version are timed alike:
+    per call in a run of REPS calls."""
     dev = require_cuda()
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(SEED)
     records = []
     for bits, s, k in CASES:
         dlut, codes = make_inputs(rng, s, k)
         dlut_d, codes_d = torch.from_numpy(dlut).to(dev), torch.from_numpy(codes).to(dev)
         want = adc_sum_reference(dlut_d, codes_d, NCELLS)
-        plain_ms = cuda_ms(lambda: adc_sum_reference(dlut_d, codes_d, NCELLS), reps=3)
+        plain_ms = loop_ms([lambda: adc_sum_reference(dlut_d, codes_d, NCELLS)] * REPS)
         for design in ADC_SUM_DESIGNS:
-            ms = loop_ms([lambda: adc_sum(dlut_d, codes_d, NCELLS, design)] * reps)
+            ms = loop_ms([lambda: adc_sum(dlut_d, codes_d, NCELLS, design)] * REPS)
             got = adc_sum(dlut_d, codes_d, NCELLS, design)
             records.append({
                 "bits": bits, "S": s, "K": k, "design": design, "ms_per_scan": ms,

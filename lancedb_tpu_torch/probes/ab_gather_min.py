@@ -24,10 +24,10 @@ SHAPES = tuple(((s, w), 1) for s, w in ((8, 128), (8, 256), (8, 512), (16, 128),
                                         (32, 128))) + (((8, 128), 0), ((256, 128), 0))
 
 
-def make_inputs(s: int, w: int, axis: int, seed: int = 0):
+def make_inputs(s: int, w: int, axis: int):
     """The script's inputs for one shape, as numpy: (x (s, w) f32,
     idx (s, w) int32 in range along ``axis``)."""
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(0)
     x = rng.standard_normal((s, w)).astype(np.float32)
     idx = rng.integers(0, (w if axis == 1 else s), (s, w)).astype(np.int32)
     return x, idx

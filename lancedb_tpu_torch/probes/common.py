@@ -10,6 +10,8 @@ import subprocess
 import numpy as np
 import torch
 
+ROUNDS = 3  # timed runs of loop_ms, after one warm-up run
+
 
 def make_clustered(rng, n, dim, n_coarse=4096, n_parents=65_536, n_queries=256):
     """Hierarchical clustered data + queries near existing parents: the
@@ -59,16 +61,16 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
-def loop_ms(fns, rounds: int = 3) -> float:
+def loop_ms(fns) -> float:
     """ms per call of a run of calls (``fns``, each called once in turn),
-    timed with CUDA events around the whole run: the best of ``rounds``
+    timed with CUDA events around the whole run: the best of ROUNDS
     after a warm-up run, as the reference's probes time a scan of
     iterations."""
     for fn in fns:
         fn()
     torch.cuda.synchronize()
     best = float("inf")
-    for _ in range(rounds):
+    for _ in range(ROUNDS):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()

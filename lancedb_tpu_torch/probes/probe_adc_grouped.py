@@ -28,6 +28,9 @@ from .common import compare, loop_ms, print_records, require_cuda
 P, PMAX, Q, NP = 1024, 1024, 128, 20
 SHAPES = ((16, 16), (16, 256), (48, 16))
 QPCS = (8, 16)
+SEED = 0
+ITERS = 20  # calls per timed run of a kernel route
+ONEHOT_ITERS = 3  # calls per timed run of the one-hot einsum (10-100 ms each)
 
 
 def make_inputs(rng, s: int, k: int, device, p=P, pmax=PMAX, q=Q, np_=NP):
@@ -83,22 +86,22 @@ def check(args, qpc: int) -> dict:
     return out
 
 
-def run(iters: int = 20, onehot_iters: int = 3, seed: int = 0) -> list[dict]:
+def run() -> list[dict]:
     """Time every route at every (S, K) on the card; one record per
     (S, K, route)."""
     dev = require_cuda()
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(SEED)
     records = []
     for s, k in SHAPES:
         args = make_inputs(rng, s, k, dev)
         probe_ids, rest = args[0], args[1:]
-        shifted = [((probe_ids + i) % P).to(torch.int32) for i in range(iters)]
+        shifted = [((probe_ids + i) % P).to(torch.int32) for i in range(ITERS)]
         routes = [
-            ("onehot einsum (plain torch)", lambda pid: onehot_scan(pid, *rest), onehot_iters),
-            ("per-pair B1", lambda pid: ivf_pq_adc_scan(pid, *rest), iters),
+            ("onehot einsum (plain torch)", lambda pid: onehot_scan(pid, *rest), ONEHOT_ITERS),
+            ("per-pair B1", lambda pid: ivf_pq_adc_scan(pid, *rest), ITERS),
         ] + [
             (f"grouped B3 qpc={qpc}",
-             lambda pid, qpc=qpc: ivf_pq_adc_grouped_scan(pid, *rest, qpc=qpc), iters)
+             lambda pid, qpc=qpc: ivf_pq_adc_grouped_scan(pid, *rest, qpc=qpc), ITERS)
             for qpc in QPCS
         ]
         checks = {f"grouped B3 qpc={qpc}": check(args, qpc) for qpc in QPCS}

@@ -27,13 +27,8 @@ from ..ops.adc import ivf_pq_adc_grouped_scan
 from .common import loop_ms, make_clustered, print_records, require_cuda
 
 N_ROWS, DIM, NPART, Q = 1_000_000, 128, 1024, 128
-
-
-def block_nprobes(searcher, nprobes: int) -> int:
-    """The user's per-partition nprobes in the searcher's blocks, as
-    ``VectorSearcher.search`` rescales it."""
-    logical = searcher.params.get("num_logical_partitions", searcher.nparts)
-    return min(searcher.nparts, max(1, int(np.ceil(nprobes * searcher.nparts / logical))))
+SEED = 7  # the script's data seed
+ITERS = 24  # calls per timed run of a route
 
 
 def grouped_inputs(searcher, q: torch.Tensor, nprobes: int = 20):
@@ -43,7 +38,7 @@ def grouped_inputs(searcher, q: torch.Tensor, nprobes: int = 20):
     dev = searcher._device
     if searcher.index_type != "IVF_PQ" or searcher.metric != "l2" or "rotation" in dev:
         raise ValueError("the grouped route serves l2 IVF_PQ indexes without OPQ")
-    probe_ids, probe_dots = _select_probes(q, dev["centroids"], block_nprobes(searcher, nprobes),
+    probe_ids, probe_dots = _select_probes(q, dev["centroids"], searcher._block_nprobes(nprobes),
                                            "l2")
     dlut = _pq_dlut(q, dev["codebooks"], dev["codes"].shape[1])
     qn2 = torch.sum(torch.square(q), dim=-1)
@@ -61,7 +56,7 @@ def full_grouped(searcher, q: torch.Tensor, qpc: int = 8, nprobes: int = 20, k: 
 
 def per_pair(searcher, q: torch.Tensor, nprobes: int = 20, k: int = 10):
     """The per-pair route: the searcher's own scan, B1."""
-    return _ivf_pq_search(q, searcher._device, None, block_nprobes(searcher, nprobes), k, "l2")
+    return _ivf_pq_search(q, searcher._device, None, searcher._block_nprobes(nprobes), k, "l2")
 
 
 def overlap(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -70,8 +65,9 @@ def overlap(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(np.mean([len(set(x.tolist()) & set(y.tolist())) / len(x) for x, y in zip(a, b)]))
 
 
-def build(seed: int = 7, n_rows: int = N_ROWS, device=None):
-    """The script's build: (dataset, searcher, queries (2048, 128) f32)."""
+def build(device):
+    """The script's build on ``device``: (dataset, searcher, queries
+    (2048, 128) f32)."""
     import pyarrow as pa
 
     from ..index import IvfPq
@@ -79,25 +75,25 @@ def build(seed: int = 7, n_rows: int = N_ROWS, device=None):
     from ..io.object_store import MemoryStore
     from ..storage.dataset import Dataset
 
-    x, q = make_clustered(np.random.default_rng(seed), n_rows, DIM, n_queries=2048)
+    x, q = make_clustered(np.random.default_rng(SEED), N_ROWS, DIM, n_queries=2048)
     fsl = pa.FixedSizeListArray.from_arrays(pa.array(x.reshape(-1), pa.float32()), DIM)
-    tbl = pa.table({"id": pa.array(np.arange(n_rows, dtype=np.int64)), "vector": fsl})
+    tbl = pa.table({"id": pa.array(np.arange(N_ROWS, dtype=np.int64)), "vector": fsl})
     ds = Dataset.create(MemoryStore(), "t.lance", tbl.schema, tbl)
     meta = build_vector_index(ds, "vector", IvfPq(num_partitions=NPART, num_sub_vectors=32,
                                                   num_bits=4), device=device)
     return ds, load_searcher(ds, meta, device), q
 
 
-def run(seed: int = 7, iters: int = 24) -> list[dict]:
+def run() -> list[dict]:
     dev = require_cuda()
     t0 = time.perf_counter()
-    ds, sp, q = build(seed, device=dev)
+    ds, sp, q = build(dev)
     torch.cuda.synchronize()
     codes = sp._device["codes"]
     records = [{
         "build_s": time.perf_counter() - t0, "blocks": sp.nparts,
         "logical": sp.params.get("num_logical_partitions", sp.nparts), "pmax": sp.pmax,
-        "npb": block_nprobes(sp, 20), "codes": [list(codes.shape), str(codes.dtype)],
+        "npb": sp._block_nprobes(20), "codes": [list(codes.shape), str(codes.dtype)],
     }]
     qj = torch.from_numpy(q[:Q]).to(dev)
     routes = [("full per-pair B1", lambda: per_pair(sp, qj))] + [
@@ -106,7 +102,7 @@ def run(seed: int = 7, iters: int = 24) -> list[dict]:
     ]
     b1_slots = per_pair(sp, qj)[1]
     for name, fn in routes:
-        ms = loop_ms([fn] * iters)
+        ms = loop_ms([fn] * ITERS)
         records.append({"route": name, "ms_per_batch": ms, "qps": Q / ms * 1e3,
                         "top10_overlap_with_b1": overlap(fn()[1], b1_slots)})
     t0 = time.perf_counter()

@@ -132,7 +132,7 @@ def test_grouped_route_matches_reference_composition():
     meta, arrays, q = _ivfpq_arrays()
     searcher = VectorSearcher.from_arrays(meta, arrays, device="cpu")
     vals, slots = probe_pq_real.full_grouped(searcher, torch.from_numpy(q), qpc=8, nprobes=3)
-    assert probe_pq_real.block_nprobes(searcher, 3) == 3
+    assert searcher._block_nprobes(3) == 3
 
     qj = jnp.asarray(q)
     probe_ids, probe_dots = _select_probes(qj, jnp.asarray(arrays["centroids"]), 3, "l2")

@@ -19,7 +19,7 @@ import torch
 
 from lancedb_tpu_torch.ops import flat_scan
 from lancedb_tpu_torch.ops.cuda_build import launch_counts
-from lancedb_tpu_torch.ops.util import group_probe_pairs
+from lancedb_tpu_torch.ops.util import group_probe_pairs, grouped_plan
 
 PAD = np.float32(3.0e38)
 
@@ -129,7 +129,7 @@ def test_grouped_plan_is_what_the_kernel_needs():
     groups as the kernel does gives the plain version's output."""
     probe_ids, q, vectors, norms, alpha, gamma = args = _case("l2", Q=7, NP=3, seed=5)
     P, PMAX, _ = vectors.shape
-    gpid, pair_of_slot, g = flat_scan.grouped_plan(torch.from_numpy(probe_ids), P, 4)
+    gpid, pair_of_slot, g = grouped_plan(torch.from_numpy(probe_ids), P, 4)
     gpid, pos = gpid.numpy(), pair_of_slot.numpy().reshape(g, 4)
     real = pos[pos >= 0]
     np.testing.assert_array_equal(np.sort(real), np.arange(probe_ids.size))

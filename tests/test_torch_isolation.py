@@ -20,7 +20,8 @@ sys.modules["lancedb_tpu"] = None  # and so does any import of the reference
 import numpy as np, pyarrow as pa, torch
 import lancedb_tpu_torch
 from lancedb_tpu_torch.index import IvfFlat, IvfPq
-from lancedb_tpu_torch.ops import adc_sum, ivf_pq_adc_grouped_scan, smem_gather
+from lancedb_tpu_torch.ops import ivf_pq_adc_grouped_scan
+from lancedb_tpu_torch.ops.probe_kernels import adc_sum, smem_gather
 from lancedb_tpu_torch.probes import ab_adc8, ab_gather_min, common, probe_adc_grouped, probe_pq_real
 
 rng = np.random.default_rng(0)
