@@ -8,7 +8,11 @@
 Phases:
   1. card: the card's name and power limit (nvidia-smi) and torch's name.
   2. kernels: build every CUDA source under lancedb_tpu_torch/csrc (one
-     nvcc per source, all started together), then hold the ADC scan
+     nvcc per source, all started together), then hold the plan kernel of
+     the grouped scans (csrc/group_plan.cu) against grouped_plan_reference
+     element for element (random probes at qpc 1, 8 and 32, a partition
+     probed by every query, P far above Q x NP), under torch's sync debug
+     mode, and time it beside the torch ops; then hold the ADC scan
      kernel (B1) and the grouped ADC scan kernel (B3, at qpc 8 and 16)
      against their plain torch versions at SIFT1M shapes (1024
      partitions, pmax 1152, 128 queries, 20 probes) for 8-bit x16 and
@@ -17,6 +21,11 @@ Phases:
      (B2, B4) against their plain version at the IVF_FLAT path's shapes
      (1402 blocks of pmax 1224, D 128, 128 queries, 27 probes), for f32
      and bf16 storage and the l2, cosine and dot forms, and times them.
+     Kernel times are CUDA events around single calls: ``ms`` back to
+     back, as a caller meets them (the host's launch included); for B1,
+     B2 and the plan also ``device_ms`` (behind a spin kernel, so the
+     host's launch is hidden) and for B1 and B2 ``cold_ms`` (L2 flushed by
+     a 128 MB write before each call).
      Then it drives the probes of the ADC inner loop (S1, both designs,
      lancedb_tpu_torch.probes.ab_adc8) and of the shared-memory gather
      (S2, its eight shapes, probes.ab_gather_min), each with the launch
@@ -46,6 +55,8 @@ Phases:
      c. create_index(FLAT) → search in precision float32, bfloat16 and
         the default two-pass.
      Ground truth is exact f32 on the card; every recall bar is checked.
+     The plan kernel must run once per grouped call (B2 on b, B3 on the
+     grouped route), and it is checked on their inputs.
   4. probes: probes.probe_adc_grouped (B3 at qpc 8 and 16 against B1 and
      the one-hot einsum at P 1024, pmax 1024, 128 queries, 20 clustered
      probes), with the launch counts set to 0 just before it and read
@@ -86,6 +97,9 @@ KERNELS = {  # launch counter: (id, source, the TPU kernel it replaces)
                        "scripts/ab_adc8.py:59"),
     "smem_gather": ("S2", "lancedb_tpu_torch/csrc/smem_gather.cu",
                     "scripts/ab_gather_min.py:11"),
+    # not a TPU kernel: the plan of B2 and B3, which the reference computes in XLA ops
+    "group_plan": ("B2/B3 plan", "lancedb_tpu_torch/csrc/group_plan.cu",
+                   "lancedb_tpu/ops/util.py:56"),
 }
 FLAT_COUNTERS = {"grouped": "ivf_flat_grouped_scan", "pair": "ivf_flat_scan"}
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -116,34 +130,46 @@ def kernel_record(counter: str, name: str, max_abs: float, ms: float, plain_ms: 
 
 def check_flat(kind: str, args, label: str) -> dict:
     """Hold B2 (kind 'grouped') or B4 ('pair') against the plain version
-    on ``args``, time both, and compute the bound. Raises on disagreement."""
+    on ``args``, time both, and compute the bound. For B2 also the launch
+    alone on its plan, and both on the card alone and with L2 flushed
+    before each call (cold). Raises on disagreement."""
     import torch
 
     from lancedb_tpu_torch.ops import flat_scan
-    from lancedb_tpu_torch.ops.cuda_build import launch_counts
+    from lancedb_tpu_torch.ops.cuda_build import launch, launch_counts
     from lancedb_tpu_torch.ops.util import grouped_plan
-    from lancedb_tpu_torch.probes.common import compare, cuda_ms
+    from lancedb_tpu_torch.probes.common import compare, cuda_ms, cuda_ms_cold, device_ms
 
     counter = FLAT_COUNTERS[kind]
     fn = flat_scan.ivf_flat_grouped_scan if kind == "grouped" else flat_scan.ivf_flat_scan
     saved = dict(launch_counts)  # comparison launches do not count
-    max_abs = compare(fn(*args), flat_scan.ivf_flat_scan_reference(*args), label)
+    want = flat_scan.ivf_flat_scan_reference(*args)
+    max_abs = compare(fn(*args), want, label)
     ms = cuda_ms(lambda: fn(*args))
     plain_ms = cuda_ms(lambda: flat_scan.ivf_flat_scan_reference(*args))
     extra = {}
-    if kind == "grouped":
-        # the launch alone, without the grouping of the pairs (torch ops)
-        probe_ids, queries, vectors, norms, alpha, gamma = args
-        gpid, pair_of_slot, g = grouped_plan(probe_ids, vectors.shape[0], 8)
-        out = torch.empty((probe_ids.shape[0], probe_ids.shape[1], vectors.shape[1]),
-                          device=vectors.device)
-        extra["kernel_only_ms"] = cuda_ms(lambda: flat_scan.launch_grouped(
-            gpid, pair_of_slot, g, 8, queries, vectors, norms, alpha, gamma, out))
-        extra["groups"] = int((pair_of_slot.view(g, 8)[:, 0] >= 0).sum())
-    launch_counts.update(saved)
     probe_ids, queries, vectors, norms, alpha, gamma = args
     q, np_ = probe_ids.shape
-    _, pmax, d = vectors.shape
+    p, pmax, d = vectors.shape
+    if kind == "grouped":
+        extra["cold_ms"] = cuda_ms_cold(lambda: fn(*args))
+        extra["device_ms"] = device_ms(lambda: fn(*args))
+        # the launch alone, on a plan made beforehand
+        gpid, pair_of_slot, g = grouped_plan(probe_ids, p, 8)
+        out = torch.empty((q, np_, pmax), device=vectors.device)
+        ptrs = [gpid.data_ptr(), pair_of_slot.data_ptr(), queries.data_ptr(), vectors.data_ptr(),
+                norms.data_ptr(), alpha.data_ptr(), gamma.data_ptr(), out.data_ptr()]
+        ints = [g, 8, np_, pmax, d, int(vectors.dtype == torch.bfloat16)]
+        def alone():
+            launch("ivf_flat_group_scan", ptrs, ints, vectors.device)
+
+        extra["kernel_only_ms"] = cuda_ms(alone)
+        extra["kernel_only_cold_ms"] = cuda_ms_cold(alone)
+        extra["kernel_only_device_ms"] = device_ms(alone)
+        extra["groups"] = int((pair_of_slot.view(g, 8)[:, 0] >= 0).sum())
+        del out
+    del want
+    launch_counts.update(saved)
     # least bytes: each probed block (rows and norms) once, the queries,
     # probe ids, alpha and gamma once, the output once
     n_parts = int(torch.unique(probe_ids).numel())
@@ -156,11 +182,87 @@ def check_flat(kind: str, args, label: str) -> dict:
     rec = kernel_record(
         counter, f"{counter} ({str(vectors.dtype).replace('torch.', '')} storage)", max_abs,
         ms, plain_ms, nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3, **extra,
-        shape={"Q": q, "NP": np_, "P": int(vectors.shape[0]), "pmax": pmax, "D": d,
-               "probed_partitions": n_parts},
+        shape={"Q": q, "NP": np_, "P": p, "pmax": pmax, "D": d, "probed_partitions": n_parts},
     )
     print(f"[kernel] {label}: {json.dumps(rec)}", flush=True)
     return rec
+
+
+def check_plan(probe_ids, p: int, qpc: int, label: str, timed: bool = True) -> dict:
+    """Hold the plan kernel (grouped_plan on the card) against
+    grouped_plan_reference element for element on ``probe_ids``, with
+    torch's sync debug mode: an error if the kernel's path makes the host
+    wait, a record of whether the torch ops do. With ``timed``, time both
+    and return a kernel record (the torch ops are both the plain version
+    and the library yardstick). Raises on disagreement."""
+    import warnings
+
+    import torch
+
+    from lancedb_tpu_torch.ops.cuda_build import launch_counts
+    from lancedb_tpu_torch.ops.util import grouped_plan, grouped_plan_reference
+    from lancedb_tpu_torch.probes.common import cuda_ms, device_ms
+
+    saved = dict(launch_counts)  # comparison launches do not count
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = grouped_plan(probe_ids, p, qpc)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            want = grouped_plan_reference(probe_ids, p, qpc)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    same = got[2] == want[2] and all(torch.equal(a, b) for a, b in zip(got[:2], want[:2]))
+    if not same:
+        raise AssertionError(f"{label}: the plan kernel differs from grouped_plan_reference")
+    extra = {"groups_bound": got[2], "groups": int((want[1].view(-1, qpc)[:, 0] >= 0).sum()),
+             "reference_syncs": sum("synchroniz" in str(w.message) for w in caught)}
+    if not timed:
+        launch_counts.update(saved)
+        print(f"[kernel] {label}: equal, {json.dumps(extra)}", flush=True)
+        return extra
+    ms = cuda_ms(lambda: grouped_plan(probe_ids, p, qpc))
+    extra["device_ms"] = device_ms(lambda: grouped_plan(probe_ids, p, qpc))
+    plain_ms = cuda_ms(lambda: grouped_plan_reference(probe_ids, p, qpc))
+    launch_counts.update(saved)
+    # least bytes: the probe ids read once, gpid and pair_of_slot written once
+    nbytes = 4 * (probe_ids.numel() + got[0].numel() + got[1].numel())
+    rec = kernel_record(
+        "group_plan", f"group_plan (P={p}, S={probe_ids.numel()}, qpc={qpc})", 0.0, ms, plain_ms,
+        nbytes / HBM_BYTES_PER_S * 1e3, 0.0, library_ms=plain_ms, **extra,
+    )
+    print(f"[kernel] {label}: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def synthetic_plan_checks() -> tuple[dict, list[dict]]:
+    """The plan kernel against grouped_plan_reference on synthetic probe
+    ids: the IVF_FLAT path's shapes (128 x 27 random probes over 1402
+    blocks, a repeated probe) at qpc 1, 8 and 32; one partition probed by
+    every query (more pairs than MAX_QPC) at qpc 1 and 32; P far above
+    Q x NP, in shared memory above 48 KB (P 20,000) and in the global
+    scratch (P 100,000). Returns (the timed qpc-8 record, the rest)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    probe = torch.randint(0, 1402, (128, 27), generator=gen, device="cuda", dtype=torch.int32)
+    probe[:, 1] = probe[:, 0]
+    timed = check_plan(probe, 1402, 8, "synthetic plan qpc=8")
+    rest = [check_plan(probe, 1402, qpc, f"synthetic plan qpc={qpc}", timed=False)
+            for qpc in (1, 32)]
+    hot = probe.clone()
+    hot[:, 2] = 5
+    rest += [check_plan(hot, 1402, qpc, f"hot partition plan qpc={qpc}", timed=False)
+             for qpc in (1, 32)]
+    for p in (20_000, 100_000):
+        wide = torch.randint(0, p, (16, 8), generator=gen, device="cuda", dtype=torch.int32)
+        rest.append(check_plan(wide, p, 8, f"wide plan P={p}", timed=False))
+    return timed, rest
 
 
 def synthetic_flat_args(metric: str, dtype, p=1402, pmax=1224, d=128, q=128, np_=27, seed=0):
@@ -218,19 +320,24 @@ def adc_bound(args) -> tuple[float, float, dict]:
 
 def check_adc(args, label: str) -> dict:
     """Hold the CUDA ADC kernel (B1) against the plain version on
-    ``args``, time both, and compute the bound. Raises on disagreement."""
+    ``args``, time both (B1 also on the card alone and with L2 flushed
+    before each call), and compute the bound. Raises on disagreement."""
     from lancedb_tpu_torch.ops import adc
-    from lancedb_tpu_torch.probes.common import compare, cuda_ms
+    from lancedb_tpu_torch.probes.common import compare, cuda_ms, cuda_ms_cold, device_ms
 
     saved = dict(adc.launch_counts)  # comparison launches do not count
-    max_abs = compare(adc.ivf_pq_adc_scan(*args), adc.ivf_pq_adc_scan_reference(*args), label)
+    want = adc.ivf_pq_adc_scan_reference(*args)
+    max_abs = compare(adc.ivf_pq_adc_scan(*args), want, label)
     ms = cuda_ms(lambda: adc.ivf_pq_adc_scan(*args))
+    extra = {"cold_ms": cuda_ms_cold(lambda: adc.ivf_pq_adc_scan(*args)),
+             "device_ms": device_ms(lambda: adc.ivf_pq_adc_scan(*args))}
     plain_ms = cuda_ms(lambda: adc.ivf_pq_adc_scan_reference(*args))
+    del want
     adc.launch_counts.update(saved)
     bytes_ms, ops_ms, shape = adc_bound(args)
     # library_ms None: no single PyTorch call computes the ADC scan
     rec = kernel_record("ivf_pq_adc_scan", f"ivf_pq_adc_scan (K={shape['K']}, S={shape['S']})",
-                        max_abs, ms, plain_ms, bytes_ms, ops_ms, shape=shape)
+                        max_abs, ms, plain_ms, bytes_ms, ops_ms, **extra, shape=shape)
     print(f"[kernel] {label}: {json.dumps(rec)}", flush=True)
     return rec
 
@@ -480,14 +587,17 @@ def ivf_flat_path(tbl, queries, gt, gt_f, card: str) -> tuple[dict, list[dict]]:
     torch.cuda.synchronize()
     launches = launch_counts["ivf_flat_grouped_scan"]
     rec["b2_launches"] = launches
+    rec["plan_launches"] = plan_launches = launch_counts["group_plan"]
     rec["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated())
     searcher = tbl._get_searcher(tbl._dataset.manifest.indices[0])
     rec["layout"] = {"blocks": searcher.nparts, "pmax": searcher.pmax}
     args = searcher_flat_args(searcher, queries)
     krecs = [check_flat("grouped", args, "B2 main-path shapes"),
-             check_flat("pair", args, "B4 on B2's main-path inputs")]
+             check_flat("pair", args, "B4 on B2's main-path inputs"),
+             check_plan(args[0], searcher.nparts, 8, "B2's plan main-path shapes")]
     krecs[0]["launches"] = launches
     krecs[1]["launches"] = launch_counts["ivf_flat_scan"]  # 0: no search path runs B4
+    krecs[2]["launches"] = plan_launches
     del args
 
     dev = searcher._device
@@ -516,6 +626,8 @@ def ivf_flat_path(tbl, queries, gt, gt_f, card: str) -> tuple[dict, list[dict]]:
     print(f"[main] ivf_flat ({card}): {json.dumps(rec)}", flush=True)
     if launches <= 0:
         raise AssertionError("ivf_flat: B2 was not launched on the search path")
+    if plan_launches != launches:
+        raise AssertionError(f"ivf_flat: {plan_launches} plan kernels for {launches} B2 launches")
     del searcher, dev
     tbl._invalidate_caches()
     torch.cuda.empty_cache()
@@ -567,6 +679,7 @@ def grouped_route(tbl, searcher, queries, gt, tag: str, bar: float, b1_ms: float
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t) * 1e3
     launches = launch_counts["ivf_pq_adc_grouped_scan"]
+    plan_launches = launch_counts["group_plan"]
     b1_slots = torch.cat([per_pair(searcher, q)[1] for q in chunks])
     vals = torch.cat([v for v, _ in routed]).cpu().numpy()
     slots = torch.cat([s for _, s in routed])
@@ -574,16 +687,21 @@ def grouped_route(tbl, searcher, queries, gt, tag: str, bar: float, b1_ms: float
     rids[vals >= 1.5e38] = np.iinfo(np.uint64).max  # fell off the index
     ids = rowids_to_ids(tbl, rids)
     rec = {"recall@10": recall(ids, gt), "top10_overlap_with_b1_route": overlap(slots, b1_slots),
-           "ms_per_256q_host_clock": ms, "b3_launches": launches}
-    krec = check_adc_grouped(searcher_adc_args(searcher, queries), 8, f"{tag} B3 main-path shapes",
-                             b1_ms)
+           "ms_per_256q_host_clock": ms, "b3_launches": launches, "plan_launches": plan_launches}
+    args = searcher_adc_args(searcher, queries)
+    krec = check_adc_grouped(args, 8, f"{tag} B3 main-path shapes", b1_ms)
     krec["launches"] = launches
+    prec = check_plan(args[0], args[2].shape[0], 8, f"{tag} B3's plan main-path shapes")
+    prec["launches"] = plan_launches
+    del args
     print(f"[main] {tag} grouped route: {json.dumps(rec)}", flush=True)
     if launches <= 0:
         raise AssertionError(f"{tag}: B3 was not launched on the grouped route")
+    if plan_launches != launches:
+        raise AssertionError(f"{tag}: {plan_launches} plan kernels for {launches} B3 launches")
     if rec["recall@10"] < bar:
         raise AssertionError(f"{tag}: grouped-route recall {rec['recall@10']} < {bar}")
-    return rec, krec
+    return rec, [krec, prec]
 
 
 def exact_gt(x_d, xn2_d, q: np.ndarray, k: int, mask_d=None) -> np.ndarray:
@@ -682,9 +800,9 @@ def main_path(card: str) -> tuple[dict, list[dict]]:
             kernels.append(krec)
             rec["breakdown"] = breakdown(tbl, searcher, queries)
             print(f"[main] {tag} breakdown ({card}): {json.dumps(rec['breakdown'])}", flush=True)
-            rec["grouped_route"], grec = grouped_route(tbl, searcher, queries, gt, tag,
-                                                       RAW_RECALL_BARS[nbits] - 0.03, krec["ms"])
-            kernels.append(grec)
+            rec["grouped_route"], grecs = grouped_route(tbl, searcher, queries, gt, tag,
+                                                        RAW_RECALL_BARS[nbits] - 0.03, krec["ms"])
+            kernels.extend(grecs)
             # the quality bars
             if launches <= 0:
                 raise AssertionError(f"{tag}: the ADC kernel was not launched on the search path")
@@ -805,6 +923,7 @@ def main() -> int:
     for src, log in cuda_build.build_logs.items():
         print(f"[build] {src} ptxas:\n{log.strip()}", flush=True)
 
+    plan_line, plan_rest = synthetic_plan_checks()
     synthetic, grouped = [], []
     for k, s in ((256, 16), (16, 32)):
         args = synthetic_adc_args(k, s)
@@ -824,9 +943,10 @@ def main() -> int:
             del args
     torch.cuda.empty_cache()
     probe_kernels = probe_kernel_records()
-    summary: dict = {"synthetic_kernels": synthetic + grouped + flat_checks + probe_kernels}
+    summary: dict = {"synthetic_kernels": synthetic + grouped + flat_checks + probe_kernels
+                     + [plan_line], "synthetic_plans": plan_rest}
     # the l2 records of each flat kernel and storage type go into the line
-    flat_line = [r for r in flat_checks if r["metric"] == "l2"]
+    flat_line = [r for r in flat_checks if r["metric"] == "l2"] + [plan_line]
     kernels = synthetic + grouped + flat_line
     if a.phase == "all":
         results, main_kernels = main_path(card)

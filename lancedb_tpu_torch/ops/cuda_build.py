@@ -21,6 +21,7 @@ the second.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -40,6 +41,7 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_entries: dict = {}  # their launch entries, by name
 # ptxas report (registers, shared memory, spills) of each build, by source
 build_logs: dict[str, str] = {}
 
@@ -47,6 +49,7 @@ build_logs: dict[str, str] = {}
 launch_counts: dict[str, int] = {
     "ivf_pq_adc_scan": 0, "ivf_pq_adc_grouped_scan": 0, "ivf_flat_grouped_scan": 0,
     "ivf_flat_scan": 0, "adc_sum_select": 0, "adc_sum_gather": 0, "smem_gather": 0,
+    "group_plan": 0,
 }
 
 
@@ -121,28 +124,63 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, ptrs: list[int], ints: list[int], device: torch.device) -> None:
-    """Launch the kernel of ``csrc/<name>.cu`` on ``device``'s current
-    stream: ``ptrs`` are ``data_ptr()`` values, ``ints`` the C ints after
-    them. Raises if the launch is refused."""
-    lib = load(name)
-    fn = getattr(lib, f"{name}_launch")
-    if fn.argtypes is None:  # ctypes would cut 64-bit pointers without them
-        fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
+def _entry(name: str, nptrs: int, nints: int):
+    """``<name>_launch`` of the library, its argument types set (ctypes
+    would cut 64-bit pointers without them)."""
+    fn = _entries.get(name)
+    if fn is None:
+        lib = load(name)
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = [ctypes.c_void_p] * nptrs + [ctypes.c_int] * nints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-    with torch.cuda.device(device):
-        code = fn(*ptrs, *ints, torch.cuda.current_stream(device).cuda_stream)
+        _entries[name] = fn
+    return fn
+
+
+def _raw_stream(index: int) -> int:
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return get(index) if get is not None else torch.cuda.current_stream(index).cuda_stream
+
+
+def launch(name: str, ptrs: list[int], ints: list[int], device: torch.device) -> None:
+    """Launch the kernel of ``csrc/<name>.cu`` on ``device``'s current
+    stream: ``ptrs`` are ``data_ptr()`` values (0 for a null pointer),
+    ``ints`` the C ints after them. Raises if the launch is refused. The
+    host's part is kept short (no stream object, no device switch where
+    the device is current): on the main path it runs once per launch."""
+    fn = _entry(name, len(ptrs), len(ints))
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        code = fn(*ptrs, *ints, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            code = fn(*ptrs, *ints, _raw_stream(index))
     if code != 0:
-        msg = getattr(lib, f"{name}_error_string")(code).decode()
+        msg = getattr(load(name), f"{name}_error_string")(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
 
 
 def max_smem_bytes() -> int:
     """Shared memory one block may opt into on the current card, as the
     CUDA runtime reports it (through ``csrc/adc_scan.cu``'s C entry)."""
+    return _max_smem_bytes(torch.cuda.current_device())
+
+
+@functools.cache
+def _max_smem_bytes(index: int) -> int:
     fn = load("adc_scan").adc_scan_max_smem_bytes
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
+
+
+@functools.cache
+def static_smem_bytes(name: str) -> int:
+    """Static shared memory of the kernel of ``csrc/<name>.cu``, which its
+    ``<name>_static_smem_bytes`` entry reads from the CUDA runtime."""
+    fn = getattr(load(name), f"{name}_static_smem_bytes")
     fn.argtypes, fn.restype = [], ctypes.c_int
     return fn()

@@ -1,9 +1,12 @@
 """Shared helpers for the device ops: padding arithmetic, dtype policy,
-argument checks for the kernels and the pair grouping of the probed scans."""
+argument checks for the kernels and the pair grouping of the probed scans
+(``grouped_plan``, which launches ``csrc/group_plan.cu`` on the card)."""
 
 from __future__ import annotations
 
 import torch
+
+from .cuda_build import launch, launch_counts, max_smem_bytes, static_smem_bytes
 
 # +inf stand-in for masked entries (the reference's INF, ops/util.py:53)
 INF = 3.4e38
@@ -89,14 +92,27 @@ def group_probe_pairs(probe_ids: torch.Tensor, p: int, qpc: int):
     padded = (counts + qpc - 1) // qpc * qpc
     poff = torch.cumsum(padded, dim=0) - padded
     slot = poff[spids] + rank  # position in the padded layout
-    # at most min(P, S) partitions are probed, each padded by < qpc slots
-    spad = (s + min(p, s) * (qpc - 1) + qpc - 1) // qpc * qpc
-    g = spad // qpc
+    g, spad = plan_bounds(s, p, qpc)
     qidx = torch.zeros(spad, dtype=torch.int32, device=dev)
     qidx[slot] = (order // np_).to(torch.int32)
     gpid = spids[-1:].to(torch.int32).repeat(g)  # stays on the device, no sync
     gpid[slot // qpc] = spids.to(torch.int32)
     return gpid, qidx, slot.to(torch.int32), order.to(torch.int32), g, spad
+
+
+def plan_bounds(s: int, p: int, qpc: int) -> tuple[int, int]:
+    """(G, SPAD) of the plan of ``s`` pairs over ``p`` partitions: at most
+    min(P, S) partitions are probed, each padded by < qpc slots."""
+    spad = (s + min(p, s) * (qpc - 1) + qpc - 1) // qpc * qpc
+    return spad // qpc, spad
+
+
+def grouped_plan_reference(probe_ids: torch.Tensor, p: int, qpc: int):
+    """Plain torch version of ``grouped_plan``, from ``group_probe_pairs``."""
+    gpid, _, slot, order, g, spad = group_probe_pairs(probe_ids, p, qpc)
+    pair_of_slot = torch.full((spad,), -1, dtype=torch.int32, device=probe_ids.device)
+    pair_of_slot[slot.long()] = order
+    return gpid, pair_of_slot, g
 
 
 def grouped_plan(probe_ids: torch.Tensor, p: int, qpc: int):
@@ -105,8 +121,36 @@ def grouped_plan(probe_ids: torch.Tensor, p: int, qpc: int):
     i // qpc holds pair ``pair_of_slot[i]`` = q·NP + j, or −1 where the
     group is padded. The kernel writes each real slot's row straight to
     out[q, j] and never writes a padded one, which replaces the
-    reference's scatter back through ``slot`` and ``argsort(order)``."""
-    gpid, _, slot, order, g, spad = group_probe_pairs(probe_ids, p, qpc)
-    pair_of_slot = torch.full((spad,), -1, dtype=torch.int32, device=probe_ids.device)
-    pair_of_slot[slot.long()] = order
+    reference's scatter back through ``slot`` and ``argsort(order)``.
+
+    On the card: one launch of ``csrc/group_plan.cu`` on the current
+    stream, with no host sync; probe ids must lie in [0, P). On the CPU:
+    ``grouped_plan_reference``. The two agree element for element."""
+    dev = probe_ids.device
+    if dev.type == "cpu":
+        return grouped_plan_reference(probe_ids, p, qpc)
+    if dev.type != "cuda":
+        raise ValueError(f"grouped_plan runs on cuda or cpu tensors, got {dev}")
+    q, np_ = probe_ids.shape
+    check_tensor(probe_ids, "probe_ids", torch.int32, (q, np_), dev)
+    if qpc < 1 or p < 1:
+        raise ValueError(f"grouped_plan needs qpc >= 1 and P >= 1, got qpc {qpc}, P {p}")
+    g, spad = plan_bounds(q * np_, p, qpc)
+    # the kernel keeps 2·P counters and a scratch copy of the padded layout
+    # in shared memory, each as far as it fits, the rest in global scratch
+    room = max_smem_bytes() - static_smem_bytes("group_plan")
+    counters_fit = 8 * p <= room
+    runs_fit = counters_fit and 8 * p + 4 * spad <= room
+    extra = (0 if counters_fit else 2 * p) + (0 if runs_fit else spad)
+    buf = torch.empty((g + spad + extra,), dtype=torch.int32, device=dev)  # one allocation
+    gpid, pair_of_slot = buf[:g], buf[g : g + spad]
+    if q * np_ == 0:
+        return gpid, pair_of_slot, g
+    base = buf.data_ptr()
+    scratch = base + 4 * (g + spad)  # int32 offsets into buf
+    counters = 0 if counters_fit else scratch
+    runs = 0 if runs_fit else scratch + (0 if counters_fit else 8 * p)
+    launch("group_plan", [probe_ids.data_ptr(), base, base + 4 * g, counters, runs],
+           [q * np_, p, qpc, g], dev)
+    launch_counts["group_plan"] += 1
     return gpid, pair_of_slot, g

@@ -11,6 +11,8 @@ import numpy as np
 import torch
 
 ROUNDS = 3  # timed runs of loop_ms, after one warm-up run
+SLEEP_CYCLES = 2_000_000  # device_ms's spin kernel before each call, about 1 ms
+FLUSH_BYTES = 128 << 20  # cuda_ms_cold's write before each call, above the card's 50 MB L2
 
 
 def make_clustered(rng, n, dim, n_coarse=4096, n_parents=65_536, n_queries=256):
@@ -45,12 +47,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
-    """Median of ``reps`` single-call CUDA-event timings, after a warm-up."""
+def cuda_ms(fn, reps: int = 20, before=None) -> float:
+    """Median of ``reps`` single-call CUDA-event timings, after a warm-up.
+    ``before``, if given, runs before each call, outside the events."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if before is not None:
+            before()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -59,6 +64,21 @@ def cuda_ms(fn, reps: int = 20) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """``cuda_ms`` with each call behind a spin kernel of SLEEP_CYCLES
+    that keeps the card busy while the host enqueues the call: the card's
+    time for the call, without the host's launch overhead that
+    ``cuda_ms`` includes."""
+    return cuda_ms(fn, reps, before=lambda: torch.cuda._sleep(SLEEP_CYCLES))
+
+
+def cuda_ms_cold(fn, reps: int = 20) -> float:
+    """``cuda_ms`` with a write of FLUSH_BYTES before each call, so the
+    call finds none of its inputs in L2."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    return cuda_ms(fn, reps, before=lambda: flush.fill_(1.0))
 
 
 def loop_ms(fns) -> float:

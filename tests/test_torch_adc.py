@@ -141,3 +141,19 @@ def test_cuda_kernel_matches_plain_version(K, S):
     _assert_adc_close(got.cpu().numpy(), adc.ivf_pq_adc_scan_reference(*args).cpu().numpy())
     with pytest.raises(TypeError):
         adc.ivf_pq_adc_scan(args[0].long(), *args[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("PMAX", [1000, 1090])
+@pytest.mark.parametrize("K,S", [(256, 16), (16, 32), (256, 8), (16, 48)])
+def test_cuda_kernel_matches_plain_version_at_ragged_pmax(K, S, PMAX):
+    """pmax a multiple of 4 but not of the kernel's 16-slot loads (1000),
+    and of neither (1090); 300 queries of 7 probes, so each query's probes
+    split into chunks of 2 with a shorter last one; padding slots, +3e38
+    penalties and inf where the two meet."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the ADC kernel has no CPU mode")
+    args = [torch.from_numpy(a).cuda() for a in _case(K, S, P=64, PMAX=PMAX, Q=300, NP=7, seed=S)]
+    assert bool(torch.isinf(args[3]).any()) and bool((args[3] == PAD).any())
+    got = adc.ivf_pq_adc_scan(*args)
+    _assert_adc_close(got.cpu().numpy(), adc.ivf_pq_adc_scan_reference(*args).cpu().numpy())

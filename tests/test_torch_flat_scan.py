@@ -1,8 +1,11 @@
 """The IVF_FLAT probe scans, grouped (B2) and per pair (B4): the port's
 plain version against the reference's Pallas kernels in interpret mode,
 as tests/test_pallas_kernels.py runs them; the port's pair grouping
-against the reference's, element for element; and the CUDA kernels
-against the plain version where a card is present.
+(``group_probe_pairs``, ``grouped_plan_reference``) against the
+reference's, element for element; and where a card is present the CUDA
+kernels against the plain version, and the plan kernel
+(``csrc/group_plan.cu``) against ``grouped_plan_reference`` element for
+element (an integer layout: no tolerance).
 
 Tolerance: rtol 1e-5 and atol 1e-4 x max|finite output| (the kernels sum
 the D products in other orders than the plain product); entries >= 1.5e38
@@ -19,7 +22,9 @@ import torch
 
 from lancedb_tpu_torch.ops import flat_scan
 from lancedb_tpu_torch.ops.cuda_build import launch_counts
-from lancedb_tpu_torch.ops.util import group_probe_pairs, grouped_plan
+from lancedb_tpu_torch.ops.util import (
+    MAX_QPC, group_probe_pairs, grouped_plan, grouped_plan_reference,
+)
 
 PAD = np.float32(3.0e38)
 
@@ -62,6 +67,18 @@ def _assert_close(got, want):
     fin = want < 1.5e38
     np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5,
                                atol=1e-4 * float(np.abs(want[fin]).max()))
+
+
+def _probes(Q, NP, P, hot=False, seed=0):
+    """Seeded (Q, NP) int32 probe ids: distinct per query, with a repeated
+    probe in column 1; with ``hot``, every query also probes partition
+    P // 2 in column 2, so it holds more than MAX_QPC pairs when Q does."""
+    rng = np.random.default_rng(seed)
+    ids = np.stack([rng.choice(P, NP, replace=False) for _ in range(Q)]).astype(np.int32)
+    ids[:, 1] = ids[:, 0]
+    if hot:
+        ids[:, 2] = P // 2
+    return ids
 
 
 def _pallas(kernel, args, bf16=False, **kw):
@@ -122,6 +139,26 @@ def test_group_probe_pairs_matches_reference(qpc, same_probes):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("qpc", [1, MAX_QPC])
+def test_reference_matches_group_probe_pairs_on_a_hot_partition(qpc):
+    import jax.numpy as jnp
+
+    from lancedb_tpu.ops.util import group_probe_pairs as ref_group
+
+    P = 11
+    probe_ids = _probes(40, 4, P, hot=True, seed=qpc)
+    assert np.sum(probe_ids == P // 2) > MAX_QPC
+    ref = ref_group(jnp.asarray(probe_ids), P, qpc)
+    gpid, slot, order = np.asarray(ref[0]), np.asarray(ref[2]), np.asarray(ref[3])
+    want = np.full(gpid.size * qpc, -1, np.int32)
+    want[slot] = order
+    for got in (grouped_plan_reference(torch.from_numpy(probe_ids), P, qpc),
+                grouped_plan(torch.from_numpy(probe_ids), P, qpc)):  # the CPU takes the reference
+        assert got[2] == gpid.size
+        np.testing.assert_array_equal(got[0].numpy(), gpid)
+        np.testing.assert_array_equal(got[1].numpy(), want)
+
+
 def test_grouped_plan_is_what_the_kernel_needs():
     """Each (query, probe) pair sits in exactly one slot, of a group whose
     partition is the pair's probe, slots fill each group front first (the
@@ -145,6 +182,35 @@ def test_grouped_plan_is_what_the_kernel_needs():
                 dots = vectors[gpid[grp]] @ q[qi]
                 out[pair] = alpha[qi] * dots + norms[gpid[grp]] + gamma[qi]
     _assert_close(out.reshape(probe_ids.shape + (PMAX,)), _plain(args))
+
+
+# (Q, NP, P, hot, qpc): random probes; a partition probed by every query;
+# P far above Q x NP (counters in shared memory above 48 KB, and in global
+# scratch); a padded layout too large for shared memory
+PLAN_CASES = [
+    (33, 9, 40, False, 1), (33, 9, 40, False, 8), (33, 9, 40, False, 32),
+    (70, 5, 40, True, 1), (70, 5, 40, True, 32),
+    (4, 3, 5_000, False, 8), (8, 4, 20_000, False, 8), (8, 4, 100_000, False, 32),
+    (128, 200, 1402, False, 32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,NP,P,hot,qpc", PLAN_CASES)
+def test_cuda_plan_matches_reference(Q, NP, P, hot, qpc):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the plan kernel has no CPU mode")
+    probe_ids = torch.from_numpy(_probes(Q, NP, P, hot=hot, seed=Q + P)).cuda()
+    before = launch_counts["group_plan"]
+    got = grouped_plan(probe_ids, P, qpc)
+    torch.cuda.synchronize()
+    assert launch_counts["group_plan"] == before + 1
+    want = grouped_plan_reference(probe_ids, P, qpc)
+    assert got[2] == want[2]
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    with pytest.raises(TypeError):
+        grouped_plan(probe_ids.long(), P, qpc)
 
 
 def test_wrappers_on_cpu_use_the_plain_version():
@@ -173,3 +239,22 @@ def test_cuda_kernel_matches_plain_version(kind, dtype):
     _assert_close(got.cpu().numpy(), flat_scan.ivf_flat_scan_reference(*t).cpu().numpy())
     with pytest.raises(TypeError):
         fn(t[0].long(), *t[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qpc", [1, 8, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [96, 128, 200, 37])
+def test_cuda_grouped_kernel_at_widths_and_group_sizes(D, dtype, qpc):
+    """B2 at D 96, 128 and 200 (16-byte copies) and 37 (plain loads), f32
+    and bf16 storage, qpc 1, 8 and 32; pmax 300 (a full 256-slot tile and
+    a partial one) and one partition probed by all 40 queries, more than
+    a group of 32 holds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flat scan kernels have no CPU mode")
+    args = list(_case("l2", P=40, PMAX=300, D=D, Q=40, NP=9, seed=D))
+    args[0][:, 2] = 7
+    t = [torch.from_numpy(a).cuda() for a in args]
+    t[2] = t[2].to(dtype)
+    got = flat_scan.ivf_flat_grouped_scan(*t, qpc=qpc)
+    _assert_close(got.cpu().numpy(), flat_scan.ivf_flat_scan_reference(*t).cpu().numpy())
