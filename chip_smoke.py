@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase (needs one CUDA card)
     python3 chip_smoke.py --phase kernels # build and check the kernels only
+    python3 chip_smoke.py --phase hnsw    # path e alone (or --phase large_d: path d)
     python3 chip_smoke.py --out smoke.json # also write the full summary as JSON
 
 Phases:
@@ -53,7 +54,14 @@ Phases:
         the planner's full scan called directly, with the time of the
         stable sort over its distance matrix.
      c. create_index(FLAT) → search in precision float32, bfloat16 and
-        the default two-pass.
+        the default two-pass; then one OPQ build (8-bit x16), raw and
+        refined.
+     e. HNSW (bench.py:1158 run_hnsw_config): IVF_HNSW_FLAT (m 20) on the
+        table's first 500,000 rows, the bench's 256 queries: the device
+        beam at ef 64 and 128 (profiled, its runs on the card counted
+        from 0) and the host walk at ef 64 on 64 queries, with the build's
+        stages and peak memory; IVF_HNSW_SQ on the same rows (beam, ef
+        64) and IVF_HNSW_PQ on 50,000 rows (host walk, ef 64).
      Ground truth is exact f32 on the card; every recall bar is checked.
      The plan kernel must run once per grouped call (B2 on b, B3 on the
      grouped route), and it is checked on their inputs.
@@ -61,6 +69,16 @@ Phases:
      the one-hot einsum at P 1024, pmax 1024, 128 queries, 20 clustered
      probes), with the launch counts set to 0 just before it and read
      just after.
+  5. path d, the BASELINE large-D configs (bench.py:891-895): gist_960d
+     (1M x 960 l2, 2048 partitions, 4-bit x96) and openai_1536d_cosine
+     (1M x 1536 cosine, 1024 partitions, 4-bit x192, where("cat = 3")),
+     each on its own database with the bench's data and 32 queries:
+     create_index(IvfPq) (its capacity mode, seconds, peak memory) →
+     search at nprobes 20, raw and fused-refined (and filtered), B1's
+     launches counted from 0 over each search; B1 held to its plain
+     version on the searcher's inputs; the residual-free encode held to
+     the buffered one on a 65,536-row slice. Recall bars: the
+     reference's (BASELINE.md:87-88) less 0.03, refined at least 0.95.
 
 Prints, on lines before the last, the card's name and power limit, a
 ``kernels:`` line and one JSON object ``{"kernels": [...]}``; the last
@@ -114,6 +132,45 @@ FLAT_RECALL_BARS = {
     "ivf_flat_np20_filtered": 0.95, "ivf_flat_full_scan": 0.99,
     "flat_float32": 0.99, "flat_default": 0.99, "flat_bfloat16": 0.94,
 }
+# BASELINE configs #3 and #4 as the reference's bench runs them
+# (bench.py:891-895 and run_big_pq_config: 32 queries, nprobes 20)
+LARGE_D = {
+    "gist_960d": dict(n=1_000_000, d=960, npart=2048, nsub=96, nbits=4, metric="l2",
+                      prefilter=False, seed=3960),
+    "openai_1536d_cosine": dict(n=1_000_000, d=1536, npart=1024, nsub=192, nbits=4,
+                                metric="cosine", prefilter=True, seed=41536),
+}
+
+
+def large_d_data(cfg: dict, n_queries: int = 32):
+    """A large-D config's rows, queries and ``cat`` column (None without
+    the prefilter), drawn as run_big_pq_config draws them: make_clustered
+    with the config's seed, rows and queries normalized for cosine, then
+    cat from the same generator."""
+    from lancedb_tpu_torch.probes.common import make_clustered
+
+    rng = np.random.default_rng(cfg["seed"])
+    x, q = make_clustered(rng, cfg["n"], cfg["d"], n_queries=n_queries)
+    if cfg["metric"] == "cosine":
+        x /= np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-30)
+        q /= np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-30)
+    cats = rng.integers(0, 10, cfg["n"]) if cfg["prefilter"] else None
+    return x, q, cats
+
+
+# the reference's raw / refined recall@10 (BASELINE.md:87-88) less 0.03,
+# refined at least the BASELINE metric's 0.95; the filtered refined bar is 0.95
+LARGE_D_BARS = {"gist_960d": (0.658, 0.95), "openai_1536d_cosine": (0.711, 0.961)}
+# run_hnsw_config (bench.py:1158): IVF_HNSW_FLAT, m 20, on the first 500,000
+# rows; the reference's recall@10 less 0.03 (device beam 1.0 at ef 64 and
+# 128, host walk 0.9375 at ef 64; BASELINE.md:131-160)
+HNSW_ROWS, HNSW_PQ_ROWS = 500_000, 50_000
+HNSW_BARS = {"device_ef64": 0.97, "device_ef128": 0.97, "host_ef64": 0.9075}
+# IVF_HNSW_SQ (device beam, ef 64) and IVF_HNSW_PQ (host walk, ef 64): the
+# reference's recall@10 on the CPU at 50,000 rows of the same table with
+# the same queries, 0.9953 and 0.7422 (tests/hnsw_reference_bars.py), less 0.03
+HNSW_STORAGE_BARS = {("hnsw_sq_500k", "device_ef64"): 0.9653,
+                     ("hnsw_pq_50k", "host_ef64"): 0.7121}
 
 
 def kernel_record(counter: str, name: str, max_abs: float, ms: float, plain_ms: float,
@@ -501,15 +558,20 @@ def recall(ids: np.ndarray, gt: np.ndarray) -> float:
                           for a, b in zip(ids, gt)]))
 
 
-def result_ids(tbl, nq: int, k: int = 10) -> tuple[np.ndarray, np.ndarray]:
-    """(ids (nq, k) with -1 for missing, categories of every hit)."""
+def hit_ids(tbl, nq: int, k: int = 10) -> np.ndarray:
+    """A batch's result table → ids (nq, k), -1 where a query has fewer hits."""
     qi = np.asarray(tbl.column("query_index"))
     ids = np.asarray(tbl.column("id"))
     out = np.full((nq, k), -1, np.int64)
     for i in range(nq):
         hit = ids[qi == i][:k]
         out[i, : len(hit)] = hit
-    return out, np.asarray(tbl.column("category"))
+    return out
+
+
+def result_ids(tbl, nq: int, k: int = 10) -> tuple[np.ndarray, np.ndarray]:
+    """(ids (nq, k) with -1 for missing, categories of every hit)."""
+    return hit_ids(tbl, nq, k), np.asarray(tbl.column("category"))
 
 
 def rowids_to_ids(tbl, rids: np.ndarray) -> np.ndarray:
@@ -715,6 +777,307 @@ def exact_gt(x_d, xn2_d, q: np.ndarray, k: int, mask_d=None) -> np.ndarray:
     return torch.topk(d, k, dim=1, largest=False).indices.cpu().numpy()
 
 
+def b1_args(searcher, q: np.ndarray, nprobes: int = 20):
+    """B1's inputs for one chunk of at most 128 queries, as
+    VectorSearcher.search forms them on an l2 or cosine IVF_PQ index
+    without OPQ or filter (cosine scans l2 on the unit sphere)."""
+    import torch
+
+    from lancedb_tpu_torch.index.vector import _pq_dlut, _select_probes
+
+    dev = searcher._device
+    qd = torch.from_numpy(q[:128]).cuda()
+    if searcher.metric == "cosine":
+        qd = qd / torch.clamp(qd.norm(dim=1, keepdim=True), min=1e-30)
+    probe_ids, probe_dots = _select_probes(qd, dev["centroids"], searcher._block_nprobes(nprobes),
+                                           searcher.metric)
+    return (probe_ids.to(torch.int32), _pq_dlut(qd, dev["codebooks"], dev["codes"].shape[1]),
+            dev["codes"], dev["rnorms"], probe_dots.contiguous(),
+            torch.sum(qd * qd, dim=-1).contiguous())
+
+
+def encode_check(searcher, x_slice: np.ndarray, nsub: int, kcode: int) -> dict:
+    """The residual-free encode on the card, on a slice of the table in the
+    build's dtype (bf16): with the index's codebooks, the encode that forms
+    residuals from the raw rows gives the codes and rnorms of the encode
+    that reads an f32 residual buffer; and pq_build_device with
+    ``from_raw`` against the buffered call, codebooks trained from the
+    same draws (the reference's own test holds >= 0.999 equal codes)."""
+    import torch
+
+    from lancedb_tpu_torch.ops import prng
+    from lancedb_tpu_torch.ops.kmeans import assign_residuals_device
+    from lancedb_tpu_torch.ops.pq import _encode_rnorms_device, pq_build_device
+
+    dev = searcher._device
+    x = torch.from_numpy(x_slice).to(torch.bfloat16).cuda()
+    cents, cb = dev["centroids"], dev["codebooks"]
+    assign, res = assign_residuals_device(x, cents, chunk=1 << 15)
+    buffered = _encode_rnorms_device(res, cents, assign, cb, chunk=1 << 15)
+    raw = _encode_rnorms_device(x, cents, assign, cb, chunk=1 << 15, from_raw=True)
+    if not torch.equal(raw[0], buffered[0]) or not torch.equal(raw[1], buffered[1]):
+        raise AssertionError("residual-free encode differs from the buffered encode")
+    n = x.shape[0]
+    rng = np.random.default_rng(1)
+    sel = torch.from_numpy(rng.choice(n, 256 * kcode, replace=False).astype(np.int32))
+    pool = torch.from_numpy(np.arange(32 * kcode, dtype=np.int32))
+    reseed = torch.from_numpy(rng.integers(0, 256 * kcode, (10, kcode)).astype(np.int32))
+    outs = []
+    keys = prng.split(prng.prng_key(0), nsub)
+    for src, from_raw in ((res, False), (x, True)):
+        outs.append(pq_build_device(src, cents, assign, sel, pool, keys, reseed, nsub=nsub,
+                                    kcode=kcode, max_iters=10, chunk=1 << 15, from_raw=from_raw))
+    same = float((outs[0][1] == outs[1][1]).float().mean())
+    cb_err = float((outs[0][0] - outs[1][0]).abs().max())
+    rec = {"rows": n, "shared_codebooks_codes_equal": True, "shared_codebooks_rnorms_equal": True,
+           "pq_build_codes_equal_share": same, "pq_build_codebooks_max_abs_diff": cb_err}
+    if same < 0.999:
+        raise AssertionError(f"pq_build_device from_raw: only {same} of the codes equal")
+    return rec
+
+
+def large_d_config(tag: str, cfg: dict, card: str) -> tuple[dict, dict]:
+    """One BASELINE large-D config through connect() → create_table →
+    create_index(IvfPq) → search at nprobes 20, raw and with
+    refine_factor(10) (the fused refine), and for #4 with where("cat = 3"),
+    on the bench's own data (make_clustered with its seed, 32 queries,
+    rows and queries normalized for cosine, cat drawn after them). Records
+    the capacity mode, build seconds, peak device memory, recall against
+    exact f32 truth on the card, B1 against its plain version on the
+    searcher's inputs, and the residual-free encode on a slice."""
+    import pyarrow as pa
+    import torch
+
+    import lancedb_tpu_torch
+    from lancedb_tpu_torch.index import IvfPq
+    from lancedb_tpu_torch.ops import adc
+
+    k, nq = 10, 32
+    n, d = cfg["n"], cfg["d"]
+    t0 = time.perf_counter()
+    x, q, cats = large_d_data(cfg, nq)
+    rec: dict = {"rows": n, "dim": d, "queries": nq, "data_s": time.perf_counter() - t0}
+    x_d = torch.from_numpy(x).cuda()
+    xn2_d = torch.sum(x_d * x_d, dim=1)
+    gt = exact_gt(x_d, xn2_d, q, k)  # unit rows for cosine: l2 ranks as cosine
+    gt_f = exact_gt(x_d, xn2_d, q, k, torch.from_numpy(cats == 3).cuda()) if cats is not None \
+        else None
+    del x_d, xn2_d
+    torch.cuda.empty_cache()
+    x_slice = np.ascontiguousarray(x[: 1 << 16])
+    cols = {"id": np.arange(n, dtype=np.int64),
+            "vector": pa.FixedSizeListArray.from_arrays(pa.array(x.reshape(-1)), d)}
+    if cats is not None:
+        cols["cat"] = cats
+    del x
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{tag}_") as tmp:
+        t0 = time.perf_counter()
+        tbl = lancedb_tpu_torch.connect(tmp).create_table(tag, pa.table(cols))
+        del cols
+        rec["create_table_s"] = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tbl.create_index(config=IvfPq(num_partitions=cfg["npart"], num_sub_vectors=cfg["nsub"],
+                                      num_bits=cfg["nbits"], distance_type=cfg["metric"]))
+        torch.cuda.synchronize()
+        rec["build_s"] = time.perf_counter() - t0
+        rec["build_peak_mem_bytes"] = int(torch.cuda.max_memory_allocated())
+        meta = tbl._dataset.manifest.indices[0]
+        rec["build_mode"] = meta.params["build_mode"]
+        rec["layout"] = {"blocks": meta.params["num_partitions"], "pmax": meta.params["pmax"]}
+        torch.cuda.reset_peak_memory_stats()
+        cases = [("raw", None, None, gt), ("refined", 10, None, gt)]
+        if cats is not None:
+            cases += [("filtered_raw", None, "cat = 3", gt_f),
+                      ("filtered_refined", 10, "cat = 3", gt_f)]
+        for name, rf, where, truth in cases:
+            s = tbl.search(q).nprobes(20).limit(k).select(["id"] + (["cat"] if cats is not None
+                                                                    else []))
+            if rf:
+                s = s.refine_factor(rf)
+            if where:
+                s = s.where(where)
+            s.to_arrow()  # the first call loads the searcher / the refine table
+            adc.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = s.to_arrow()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            rec[name] = {"recall@10": recall(hit_ids(out, nq, k), truth), "ms_per_32q_batch": ms,
+                         "b1_launches": adc.launch_counts["ivf_pq_adc_scan"]}
+            if where is not None:
+                rec[name]["all_match_filter"] = bool(np.all(np.asarray(out.column("cat")) == 3))
+                if not rec[name]["all_match_filter"]:
+                    raise AssertionError(f"{tag} {name}: a filtered hit has cat != 3")
+        rec["search_peak_mem_bytes"] = int(torch.cuda.max_memory_allocated())
+        searcher = tbl._get_searcher(meta)
+        rec["refine_table_dtype"] = str(searcher._device["refine_vecs"].dtype)
+        krec = check_adc(b1_args(searcher, q), f"{tag} B1 main-path shapes")
+        krec["launches"] = rec["raw"]["b1_launches"]
+        rec["encode_check"] = encode_check(searcher, x_slice, cfg["nsub"], 1 << cfg["nbits"])
+        del searcher
+        tbl._invalidate_caches()
+    torch.cuda.empty_cache()
+    print(f"[large_d] {tag} ({card}): {json.dumps(rec)}", flush=True)
+    raw_bar, refined_bar = LARGE_D_BARS[tag]
+    misses = []  # every check of the config, then one error naming all that failed
+    if rec["raw"]["b1_launches"] <= 0:
+        misses.append("B1 was not launched on the search path")
+    if rec["raw"]["recall@10"] < raw_bar:
+        misses.append(f"raw recall {rec['raw']['recall@10']} < {raw_bar}")
+    if rec["refined"]["recall@10"] < refined_bar:
+        misses.append(f"refined recall {rec['refined']['recall@10']} < {refined_bar}")
+    if cats is not None and rec["filtered_refined"]["recall@10"] < 0.95:
+        misses.append(f"filtered refined recall {rec['filtered_refined']['recall@10']} < 0.95")
+    if rec["refine_table_dtype"] != "torch.float16":
+        misses.append(f"the fused refine table is {rec['refine_table_dtype']}")
+    if misses:
+        raise AssertionError(f"{tag}: " + "; ".join(misses))
+    return rec, krec
+
+
+def large_d_path(card: str) -> tuple[dict, list[dict]]:
+    """Path d: BASELINE configs #3 and #4, each on its own database."""
+    results, kernels = {}, []
+    for tag, cfg in LARGE_D.items():
+        results[tag], krec = large_d_config(tag, cfg, card)
+        kernels.append(krec)
+    return results, kernels
+
+
+def opq_path(tbl, queries, gt, plain_raw: float, card: str) -> dict:
+    """One OPQ build (8-bit x16, 1024 partitions) on the 1M x 128 table,
+    searched raw and refined at nprobes 20. Its raw recall must reach the
+    plain build's of this run less 0.03, and its refined recall 0.99."""
+    import torch
+
+    from lancedb_tpu_torch.index import IvfPq
+
+    k = 10
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tbl.create_index(config=IvfPq(num_partitions=1024, num_sub_vectors=16, num_bits=8, opq=True))
+    torch.cuda.synchronize()
+    rec: dict = {"build_s": time.perf_counter() - t0,
+                 "build_peak_mem_bytes": int(torch.cuda.max_memory_allocated())}
+    rec["opq"] = tbl._dataset.manifest.indices[0].params.get("opq")
+    rec.update(timed_searches(tbl, queries, k, [
+        ("opq_raw", {"nprobes": 20}, gt), ("opq_refined", {"nprobes": 20, "refine_factor": 10}, gt),
+    ]))
+    print(f"[main] opq ({card}): {json.dumps(rec)}", flush=True)
+    tbl._invalidate_caches()
+    torch.cuda.empty_cache()
+    if rec["opq"] is not True:
+        raise AssertionError("opq: the index was not built with a rotation")
+    if rec["opq_raw"]["recall@10"] < plain_raw - 0.03:
+        raise AssertionError(f"opq: raw recall {rec['opq_raw']['recall@10']} < {plain_raw - 0.03}")
+    if rec["opq_refined"]["recall@10"] < 0.99:
+        raise AssertionError(f"opq: refined recall {rec['opq_refined']['recall@10']} < 0.99")
+    return rec
+
+
+def hnsw_path(db, x: np.ndarray, card: str) -> dict:
+    """Path e: IVF_HNSW_FLAT (m 20) on the first 500,000 rows of the 1M x
+    128 table with run_hnsw_config's queries (256 rows picked with
+    default_rng(17), plus 0.05 noise): the device beam at ef 64 and 128 on
+    256 queries and the host walk at ef 64 on 64, with recall against
+    exact f32 truth, the build's stages and peak memory, the beam under
+    torch.profiler, and the device-run counts read just after the
+    searches; then IVF_HNSW_SQ on the same rows (device beam, ef 64) and
+    IVF_HNSW_PQ on 50,000 rows (host walk, ef 64)."""
+    import pyarrow as pa
+    import torch
+
+    from lancedb_tpu_torch.index import HnswFlat, HnswPq, HnswSq
+    from lancedb_tpu_torch.index import hnsw
+    from lancedb_tpu_torch.index.vector import SearchParams
+
+    k, dim = 10, x.shape[1]
+    results: dict = {}
+
+    def table(n):
+        xh = np.ascontiguousarray(x[:n])
+        tbl = db.create_table(f"hnsw_{n}", pa.table({
+            "id": np.arange(n, dtype=np.int64),
+            "vector": pa.FixedSizeListArray.from_arrays(pa.array(xh.ravel()), dim)}))
+        rng2 = np.random.default_rng(17)
+        qs = xh[rng2.integers(0, n, 256)] + 0.05 * rng2.standard_normal((256, dim)).astype(
+            np.float32)
+        x_d = torch.from_numpy(xh).cuda()
+        gt = exact_gt(x_d, torch.sum(x_d * x_d, dim=1), qs, k)
+        del x_d
+        torch.cuda.empty_cache()
+        return tbl, qs.astype(np.float32), gt
+
+    def build(tbl, config) -> tuple[dict, object]:
+        torch.cuda.reset_peak_memory_stats()
+        hnsw.device_runs.clear()
+        t0 = time.perf_counter()
+        tbl.create_index(config=config)
+        torch.cuda.synchronize()
+        meta = tbl._dataset.manifest.indices[0]
+        rec = {"build_s": time.perf_counter() - t0,
+               "build_peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
+               "build_timings": meta.params["build_timings"],
+               "num_levels": meta.params["num_levels"], "build_device_runs": dict(hnsw.device_runs)}
+        return rec, tbl._get_searcher(meta)
+
+    def beam(tbl, searcher, qs, gt, ef, tag):
+        params = SearchParams(k=k, ef=ef)
+        searcher.search(qs, params)  # the first call uploads the beam's arrays
+        hnsw.device_runs.clear()
+        t0 = time.perf_counter()
+        _, rids = searcher.search(qs, params)
+        ms = (time.perf_counter() - t0) * 1e3
+        runs = hnsw.device_runs["beam"]
+        ids = rowids_to_ids(tbl, rids)
+        out = {"recall@10": recall(ids, gt), "recall@10_first64": recall(ids[:64], gt[:64]),
+               "ms_per_256q_batch": ms, "beam_runs": runs}
+        if runs <= 0:
+            raise AssertionError(f"{tag}: the device beam did not run on the card")
+        return out
+
+    def host(tbl, searcher, qs, gt, ef, nq=64):
+        t0 = time.perf_counter()
+        _, rids = searcher._search_host(qs[:nq], SearchParams(k=k, ef=ef))
+        ms = (time.perf_counter() - t0) * 1e3
+        return {"recall@10": recall(rowids_to_ids(tbl, rids), gt[:nq]), "ms_per_query": ms / nq}
+
+    tbl, qs, gt = table(HNSW_ROWS)
+    rec, searcher = build(tbl, HnswFlat())
+    for ef in (64, 128):
+        rec[f"device_ef{ef}"] = beam(tbl, searcher, qs, gt, ef, f"hnsw_flat ef {ef}")
+    rec["host_ef64"] = host(tbl, searcher, qs, gt, 64)
+    rec["profiled_beam_ef64"] = profile_search(searcher, qs, SearchParams(k=k, ef=64))
+    results["hnsw_flat_500k"] = rec
+    print(f"[hnsw] flat ({card}): {json.dumps(rec)}", flush=True)
+    for name, bar in HNSW_BARS.items():
+        if rec[name]["recall@10"] < bar:
+            raise AssertionError(f"hnsw_flat {name}: recall@10 {rec[name]['recall@10']} < {bar}")
+    del searcher
+    tbl._invalidate_caches()
+
+    rec, searcher = build(tbl, HnswSq())
+    rec["device_ef64"] = beam(tbl, searcher, qs, gt, 64, "hnsw_sq ef 64")
+    results["hnsw_sq_500k"] = rec
+    print(f"[hnsw] sq ({card}): {json.dumps(rec)}", flush=True)
+    del searcher
+    tbl._invalidate_caches()
+
+    tbl, qs, gt = table(HNSW_PQ_ROWS)
+    rec, searcher = build(tbl, HnswPq())
+    rec["host_ef64"] = host(tbl, searcher, qs, gt, 64)
+    results["hnsw_pq_50k"] = rec
+    print(f"[hnsw] pq ({card}): {json.dumps(rec)}", flush=True)
+    del searcher
+    tbl._invalidate_caches()
+    torch.cuda.empty_cache()
+    for (tag, name), bar in HNSW_STORAGE_BARS.items():
+        if results[tag][name]["recall@10"] < bar:
+            raise AssertionError(f"{tag} {name}: recall@10 {results[tag][name]['recall@10']} < {bar}")
+    return results
+
+
 def main_path(card: str) -> tuple[dict, list[dict]]:
     import pyarrow as pa
     import torch
@@ -822,6 +1185,10 @@ def main_path(card: str) -> tuple[dict, list[dict]]:
         kernels.extend(krecs)
         results["flat"] = flat_path(tbl, queries, gt, card)
         check_bars({**results["ivf_flat"], **results["flat"]})
+        results["opq"] = opq_path(tbl, queries, gt,
+                                  results["ivf_pq_8bit_x16"]["raw"]["recall@10"], card)
+        del tbl, data
+        results["hnsw"] = hnsw_path(db, x, card)
     return results, kernels
 
 
@@ -892,9 +1259,66 @@ def probes_phase(card: str) -> dict:
     return {"records": records, "launches": launches}
 
 
+def kernel_phases(phase: str, card: str) -> tuple[dict, list[dict]]:
+    """The kernel checks, then (phase "all") paths a-c, the OPQ build and
+    path e on the 1M x 128 table, the probes and path d. Returns (the
+    summary, the kernel records of the JSON line)."""
+    import torch
+
+    plan_line, plan_rest = synthetic_plan_checks()
+    synthetic, grouped = [], []
+    for k, s in ((256, 16), (16, 32)):
+        args = synthetic_adc_args(k, s)
+        label = f"synthetic {8 if k == 256 else 4}-bit x{s}"
+        synthetic.append(check_adc(args, label))
+        grouped += [check_adc_grouped(args, qpc, f"{label} B3 qpc={qpc}", synthetic[-1]["ms"])
+                    for qpc in (8, 16)]
+        del args
+    flat_checks = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for metric in ("l2", "cosine", "dot"):
+            args = synthetic_flat_args(metric, dtype)
+            for kind in ("grouped", "pair"):
+                rec = check_flat(kind, args, f"synthetic {kind} {metric} {dtype}")
+                rec["metric"] = metric
+                flat_checks.append(rec)
+            del args
+    torch.cuda.empty_cache()
+    probe_kernels = probe_kernel_records()
+    summary: dict = {"synthetic_kernels": synthetic + grouped + flat_checks + probe_kernels
+                     + [plan_line], "synthetic_plans": plan_rest}
+    # the l2 records of each flat kernel and storage type go into the line
+    flat_line = [r for r in flat_checks if r["metric"] == "l2"] + [plan_line]
+    kernels = synthetic + grouped + flat_line
+    if phase == "all":
+        results, main_kernels = main_path(card)
+        summary["main_path"] = results
+        summary["probes"] = probes_phase(card)
+        summary["large_d"], large_d_kernels = large_d_path(card)
+        counts: dict = {}  # launches on the main path, per kernel
+        for r in main_kernels:
+            counts[r["counter"]] = counts.get(r["counter"], 0) + r["launches"]
+        for r in grouped + flat_line:
+            r["launches"] = counts[r["counter"]]
+        kernels = main_kernels + large_d_kernels + grouped + flat_line
+    kernels += probe_kernels
+    return summary, kernels
+
+
+def hnsw_only(card: str) -> dict:
+    """Path e alone, on the 1M x 128 table's first rows (seed 0)."""
+    import lancedb_tpu_torch
+    from lancedb_tpu_torch.probes.common import make_clustered
+
+    x, _ = make_clustered(np.random.default_rng(0), 1_000_000, 128)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hnsw_") as tmp:
+        return hnsw_path(lancedb_tpu_torch.connect(tmp), x, card)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("all", "kernels"), default="all")
+    ap.add_argument("--phase", choices=("all", "kernels", "large_d", "hnsw"), default="all",
+                    help="kernels: the kernel checks only; large_d, hnsw: that path only")
     ap.add_argument("--out", help="also write the full summary as JSON to this file")
     a = ap.parse_args()
     if not (REPO / "lancedb_tpu_torch" / "csrc").is_dir():
@@ -923,42 +1347,15 @@ def main() -> int:
     for src, log in cuda_build.build_logs.items():
         print(f"[build] {src} ptxas:\n{log.strip()}", flush=True)
 
-    plan_line, plan_rest = synthetic_plan_checks()
-    synthetic, grouped = [], []
-    for k, s in ((256, 16), (16, 32)):
-        args = synthetic_adc_args(k, s)
-        label = f"synthetic {8 if k == 256 else 4}-bit x{s}"
-        synthetic.append(check_adc(args, label))
-        grouped += [check_adc_grouped(args, qpc, f"{label} B3 qpc={qpc}", synthetic[-1]["ms"])
-                    for qpc in (8, 16)]
-        del args
-    flat_checks = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for metric in ("l2", "cosine", "dot"):
-            args = synthetic_flat_args(metric, dtype)
-            for kind in ("grouped", "pair"):
-                rec = check_flat(kind, args, f"synthetic {kind} {metric} {dtype}")
-                rec["metric"] = metric
-                flat_checks.append(rec)
-            del args
-    torch.cuda.empty_cache()
-    probe_kernels = probe_kernel_records()
-    summary: dict = {"synthetic_kernels": synthetic + grouped + flat_checks + probe_kernels
-                     + [plan_line], "synthetic_plans": plan_rest}
-    # the l2 records of each flat kernel and storage type go into the line
-    flat_line = [r for r in flat_checks if r["metric"] == "l2"] + [plan_line]
-    kernels = synthetic + grouped + flat_line
-    if a.phase == "all":
-        results, main_kernels = main_path(card)
-        summary["main_path"] = results
-        summary["probes"] = probes_phase(card)
-        counts: dict = {}  # launches on the main path, per kernel
-        for r in main_kernels:
-            counts[r["counter"]] = counts.get(r["counter"], 0) + r["launches"]
-        for r in grouped + flat_line:
-            r["launches"] = counts[r["counter"]]
-        kernels = main_kernels + grouped + flat_line
-    kernels += probe_kernels
+    summary: dict = {}
+    kernels: list[dict] = []
+    if a.phase in ("large_d", "hnsw"):
+        if a.phase == "large_d":
+            summary["large_d"], kernels = large_d_path(card)
+        else:
+            summary["hnsw"] = hnsw_only(card)
+    else:
+        summary, kernels = kernel_phases(a.phase, card)
     summary["seconds"] = time.perf_counter() - t_start
     if a.out:
         Path(a.out).parent.mkdir(parents=True, exist_ok=True)

@@ -9,6 +9,8 @@ Same surface and on-disk format as ``lancedb_tpu``:
     tbl.create_index(config=IvfPq(num_partitions=1024, num_sub_vectors=16))
     tbl.search(q).where("category < 5").nprobes(20).refine_factor(10).limit(10).to_arrow()
     tbl.create_index(config=IvfFlat(num_partitions=1024))  # or Flat()
+    tbl.create_index(config=HnswFlat())  # or HnswSq(), HnswPq()
+    tbl.search(q).ef(64).limit(10).to_arrow()
 
 The package imports neither JAX nor ``lancedb_tpu``; CUDA kernels build
 from ``csrc/`` with nvcc on first use.
@@ -22,7 +24,7 @@ from .errors import (
     TableAlreadyExistsError,
     TableNotFoundError,
 )
-from .index import Flat, IvfFlat, IvfPq
+from .index import Flat, HnswFlat, HnswPq, HnswSq, IvfFlat, IvfPq
 from .session import Session
 from .table import Table
 
@@ -34,6 +36,9 @@ __all__ = [
     "Table",
     "Session",
     "Flat",
+    "HnswFlat",
+    "HnswPq",
+    "HnswSq",
     "IvfFlat",
     "IvfPq",
     "LanceDBError",

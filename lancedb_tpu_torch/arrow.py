@@ -46,6 +46,25 @@ def is_vector_type(t: pa.DataType) -> bool:
     )
 
 
+def is_multivector_type(t: pa.DataType) -> bool:
+    """A list of float vectors per row (the reference's
+    index/multivector.py is_multivector_type)."""
+    return (
+        (pa.types.is_list(t) or pa.types.is_large_list(t) or pa.types.is_fixed_size_list(t))
+        and pa.types.is_fixed_size_list(t.value_type)
+        and pa.types.is_floating(t.value_type.value_type)
+    )
+
+
+def refuse_multivector(schema: pa.Schema, column: str) -> None:
+    """Multivector columns wait for a later slice: raise before any work."""
+    if column in schema.names and is_multivector_type(schema.field(column).type):
+        raise NotImplementedError(
+            f"column {column!r} holds multivectors, which are not ported to "
+            "lancedb_tpu_torch yet (ROADMAP A9)"
+        )
+
+
 def sanitize_vectors(
     table: pa.Table, on_bad_vectors: str = "error", fill_value: float = 0.0
 ) -> pa.Table:

@@ -1,8 +1,8 @@
-"""Index configuration — the FLAT, IVF_FLAT and IVF_PQ part of the
+"""Index configuration — the FLAT, IVF_FLAT, IVF_PQ and HNSW part of the
 reference's index surface.
 
-The other index types (IVF_SQ, IVF_RQ, HNSW, scalar and full-text
-indexes) wait for later slices (ROADMAP A7-A9, A12).
+The other index types (IVF_SQ, IVF_RQ, scalar and full-text indexes)
+wait for later slices (ROADMAP A7, A12).
 """
 
 from __future__ import annotations
@@ -45,8 +45,8 @@ class IvfPq:
     # float32 keeps residual and codebook training at input precision.
     # CPU builds always use float32, as the reference's do.
     build_precision: str = "bfloat16"
-    # OPQ rotation: building one waits for a later slice (ROADMAP A3);
-    # searching an OPQ index that the reference built works
+    # OPQ rotation learned at build (host Procrustes steps between PQ
+    # trainings); the search rotates the query instead of the codes
     opq: bool = False
     opq_iters: int = 8
 
@@ -61,6 +61,44 @@ class Flat:
     distance_type: str = "l2"
 
     index_type: str = "FLAT"
+
+
+@dataclass
+class HnswPq:
+    """HNSW graph over PQ codes (reference IvfHnswPqIndexBuilder); served
+    by the host walk only, as in the reference."""
+
+    distance_type: str = "l2"
+    num_partitions: int | None = None
+    num_sub_vectors: int | None = None
+    m: int = 20
+    ef_construction: int = 300
+
+    index_type: str = "IVF_HNSW_PQ"
+
+
+@dataclass
+class HnswSq:
+    """HNSW graph over int8 affine codes (reference IvfHnswSqIndexBuilder)."""
+
+    distance_type: str = "l2"
+    num_partitions: int | None = None
+    m: int = 20
+    ef_construction: int = 300
+
+    index_type: str = "IVF_HNSW_SQ"
+
+
+@dataclass
+class HnswFlat:
+    """HNSW graph over the f32 rows (reference IvfHnswFlatIndexBuilder)."""
+
+    distance_type: str = "l2"
+    num_partitions: int | None = None
+    m: int = 20
+    ef_construction: int = 300
+
+    index_type: str = "IVF_HNSW_FLAT"
 
 
 def default_num_partitions(num_rows: int) -> int:

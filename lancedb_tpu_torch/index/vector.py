@@ -28,8 +28,13 @@ filters enter as a per-slot additive penalty.
 Not ported: the reference's static-shape machinery (query buckets,
 probe-capacity buckets, the runtime probe mask and ``lax.scan``
 chunking) exists for XLA and has no use here: nprobes is a plain int and
-the probes are scanned directly. The other index types wait for later
-slices (IVF_SQ and IVF_RQ: ROADMAP A7; HNSW: A8).
+the probes are scanned directly. HNSW lives in index/hnsw.py; IVF_SQ and
+IVF_RQ wait for a later slice (ROADMAP A7).
+
+IVF_PQ builds take the reference's capacity modes at its thresholds:
+bf16 residuals above 2e9 bytes of f32 rows in a bf16 build, and above 8e9
+bytes no residual buffer at all (``res_free``). OPQ builds learn a
+rotation on a residual sample and encode the rotated residuals.
 """
 
 from __future__ import annotations
@@ -44,14 +49,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..arrow import fsl_to_numpy
+from ..arrow import fsl_to_numpy, refuse_multivector
 from ..errors import InvalidInputError
 from ..io.object_store import ObjectStore
+from ..ops import prng
 from ..ops.adc import PMAX_ALIGN, S_ALIGN, ivf_pq_adc_scan
 from ..ops.distance import normalize_metric, pairwise_distance, refine_distances
 from ..ops.flat_scan import ivf_flat_grouped_scan
 from ..ops.kmeans import ivf_train_assign_device
-from ..ops.pq import default_num_sub_vectors, pq_build_device
+from ..ops.pq import default_num_sub_vectors, opq_train, pq_build_device, pq_encode_rnorms
 from ..ops.topk import topk_smallest
 from ..ops.util import lowp, matmul_dtype, resolve_device, round_up
 from ..storage.manifest import IndexMeta, new_uuid
@@ -66,11 +72,16 @@ _INVALID_ROWID = np.uint64(np.iinfo(np.uint64).max)
 # queries per scan: bounds the (Q, nprobes, pmax) distance transient
 _Q_CHUNK = 128
 
+# IVF_PQ build capacity modes, at the reference's thresholds (bytes of the
+# f32 table, n·d·4): bf16 residuals in a bf16 build above the first; above
+# the second (without OPQ) no residual buffer at all, each encode chunk
+# forming its residuals from the raw rows
+BF16_RESIDUAL_BYTES = 2_000_000_000
+RES_FREE_BYTES = 8_000_000_000
+
+# the types VectorSearcher serves; HNSW lives in index/hnsw.py
 PORTED_INDEX_TYPES = ("FLAT", "IVF_FLAT", "IVF_PQ")
-_NOT_PORTED = {
-    "IVF_SQ": "A7", "IVF_RQ": "A7",
-    "IVF_HNSW_PQ": "A8", "IVF_HNSW_SQ": "A8", "IVF_HNSW_FLAT": "A8",
-}
+_NOT_PORTED = {"IVF_SQ": "A7", "IVF_RQ": "A7"}
 
 
 def _not_ported(index_type: str) -> Exception:
@@ -92,6 +103,7 @@ class SearchParams:
     k: int = 10
     nprobes: int = 20  # minimum_nprobes default (query.rs:1103)
     refine_factor: int | None = None
+    ef: int | None = None  # HNSW search width
     precision: str = "default"  # FLAT scans: 'default' (two-pass) | 'float32' | 'bfloat16'
     # reference ApproxMode (lib.rs:299-307): 'accurate' turns the FLAT
     # two-pass into the exact f32 scan
@@ -199,15 +211,18 @@ def _scatter_padded(
 
 
 def _to_device(arr: np.ndarray, device: torch.device, dtype=None) -> torch.Tensor:
-    """Host → device once; large copies to the card go through pinned memory."""
+    """Host → device once, cast to ``dtype`` on the host first (the copy
+    moves the narrow bytes, and no wide copy sits on the card); large
+    copies to the card go through pinned memory."""
     arr = np.ascontiguousarray(arr)
     if not arr.flags.writeable:  # a read-only memory map of an index file
         arr = arr.copy()
     t = torch.from_numpy(arr)
+    if dtype is not None:
+        t = t.to(dtype)
     if device.type == "cuda" and t.nbytes >= (1 << 24):
         t = t.pin_memory()
-    t = t.to(device, non_blocking=device.type == "cuda")
-    return t if dtype is None else t.to(dtype)
+    return t.to(device, non_blocking=device.type == "cuda")
 
 
 def build_vector_index(
@@ -229,8 +244,7 @@ def build_vector_index(
     index_type = config.index_type
     if index_type not in PORTED_INDEX_TYPES:
         raise _not_ported(index_type)
-    if getattr(config, "opq", False):
-        raise NotImplementedError("OPQ index builds are not ported yet (ROADMAP A3)")
+    refuse_multivector(dataset.schema, column)
     metric = normalize_metric(config.distance_type)
     vectors, row_ids, frag_ids = _collect_vectors(dataset, column)
     n, dim = vectors.shape
@@ -287,19 +301,24 @@ def _build_ivf(
         if dim % nsub:
             raise InvalidInputError(f"dim {dim} not divisible by num_sub_vectors {nsub}")
     train_metric = "l2" if metric == "cosine" else metric
+    # large-D builds: the (chunk, K) distance transient scales with D
     chunk = 1 << 17 if dim <= 256 else 1 << 15
     build_dtype = (
         torch.float32
         if getattr(config, "build_precision", "bfloat16") == "float32" or device.type == "cpu"
         else torch.bfloat16
     )
-    if is_pq and build_dtype == torch.bfloat16 and n * dim * 4 > 2_000_000_000:
-        # the reference switches to bf16 residuals here and to residuals
-        # formed per chunk above 8e9 bytes
-        raise NotImplementedError(
-            "IVF_PQ builds above 2e9 bytes of f32 vectors need the capacity "
-            "modes, which are not ported yet (ROADMAP A3)"
-        )
+    opq = is_pq and getattr(config, "opq", False)
+    # the reference's capacity modes, at its thresholds, so both packages
+    # compute the same thing at the same sizes
+    res_free = is_pq and not opq and n * dim * 4 > RES_FREE_BYTES
+    res_dtype = (
+        "bfloat16"
+        if is_pq and build_dtype == torch.bfloat16 and n * dim * 4 > BF16_RESIDUAL_BYTES
+        else "float32"
+    )
+    if is_pq:
+        meta_doc["build_mode"] = "res_free" if res_free else f"residuals_{res_dtype}"
     rng = np.random.default_rng(config.seed)
     n_sample = min(n, config.sample_rate * nparts)
     n_pool = min(n_sample, max(32 * nparts, 4 * nparts))
@@ -312,14 +331,17 @@ def _build_ivf(
     ).astype(np.int32)
     reseed = rng.integers(0, n_sample, size=(config.max_iterations, nparts)).astype(np.int32)
 
+    # the reference pads a res_free table to whole chunks for its lax.map;
+    # the chunk loops here take a ragged last chunk, so nothing is padded
     xd = _to_device(vectors.astype(np.float32, copy=False), device, build_dtype)
-    gen = torch.Generator(device=device).manual_seed(config.seed)
     cents_d, assign_d, residuals_d = ivf_train_assign_device(
-        xd, torch.from_numpy(sel), torch.from_numpy(pool_sel), gen, torch.from_numpy(reseed),
+        xd, torch.from_numpy(sel), torch.from_numpy(pool_sel), prng.prng_key(config.seed),
+        torch.from_numpy(reseed),
         k=nparts, max_iters=config.max_iterations, metric=train_metric,
-        chunk=min(chunk, n), with_residuals=is_pq,
+        chunk=min(chunk, n), with_residuals=is_pq and not res_free, residual_dtype=res_dtype,
     )
-    del xd
+    if not res_free:
+        del xd
     centroids = cents_d.cpu().numpy()
     assign = assign_d.cpu().numpy()
     # PQ blocks keep the lane alignment the reference's kernel requires
@@ -336,28 +358,53 @@ def _build_ivf(
         meta_doc["precision"] = getattr(config, "precision", "float32")
         return
 
-    kcode = 1 << config.num_bits
-    rng_pq = np.random.default_rng(config.seed + 1)
-    n_train = min(n, config.sample_rate * kcode)
-    sel_pq = (
-        rng_pq.choice(n, size=n_train, replace=False) if n_train < n else np.arange(n)
-    ).astype(np.int32)
-    n_pq_pool = min(n_train, 32 * kcode)
-    pq_pool_sel = (
-        rng_pq.choice(n_train, size=n_pq_pool, replace=False)
-        if n_pq_pool < n_train else np.arange(n_train)
-    ).astype(np.int32)
-    reseed_pq = rng_pq.integers(0, n_train, size=(config.max_iterations, kcode)).astype(np.int32)
-    gen_pq = torch.Generator(device=device).manual_seed(config.seed)
-    codebooks_d, codes_d, rnorms_d = pq_build_device(
-        residuals_d, cents_d, assign_d, torch.from_numpy(sel_pq),
-        torch.from_numpy(pq_pool_sel), gen_pq, torch.from_numpy(reseed_pq),
-        nsub=nsub, kcode=kcode, max_iters=config.max_iterations, chunk=min(chunk, n),
-    )
-    del residuals_d
-    codebooks = codebooks_d.cpu().numpy()
-    codes = codes_d.cpu().numpy()
-    rnorms = rnorms_d.cpu().numpy()
+    if opq:
+        # OPQ alternates host Procrustes steps with PQ training on a
+        # residual sample, then encodes the rotated residuals (the
+        # reference's opt-in slow path, with its draws)
+        train_rows = min(n, config.sample_rate * 256)
+        sel_pq = np.random.default_rng(config.seed + 1).choice(
+            n, size=train_rows, replace=False
+        ) if train_rows < n else np.arange(n)
+        res_sample = residuals_d[torch.from_numpy(sel_pq).to(device)].float().cpu().numpy()
+        rotation, codebooks = opq_train(
+            res_sample, nsub, num_bits=config.num_bits,
+            opq_iters=getattr(config, "opq_iters", 8), max_iters=config.max_iterations,
+            sample_rate=config.sample_rate, seed=config.seed, device=device,
+        )
+        _save_npy(store, f"{prefix}/rotation.npy", rotation)
+        meta_doc["opq"] = True
+        codes, rnorms = pq_encode_rnorms(residuals_d, cents_d, assign_d, codebooks,
+                                         rotation=rotation)
+        del residuals_d
+    else:
+        kcode = 1 << config.num_bits
+        rng_pq = np.random.default_rng(config.seed + 1)
+        n_train = min(n, config.sample_rate * kcode)
+        sel_pq = (
+            rng_pq.choice(n, size=n_train, replace=False) if n_train < n else np.arange(n)
+        ).astype(np.int32)
+        n_pq_pool = min(n_train, 32 * kcode)
+        pq_pool_sel = (
+            rng_pq.choice(n_train, size=n_pq_pool, replace=False)
+            if n_pq_pool < n_train else np.arange(n_train)
+        ).astype(np.int32)
+        reseed_pq = rng_pq.integers(0, n_train, size=(config.max_iterations, kcode)).astype(
+            np.int32
+        )
+        codebooks_d, codes_d, rnorms_d = pq_build_device(
+            xd if res_free else residuals_d, cents_d, assign_d, torch.from_numpy(sel_pq),
+            torch.from_numpy(pq_pool_sel), prng.split(prng.prng_key(config.seed), nsub),
+            torch.from_numpy(reseed_pq),
+            nsub=nsub, kcode=kcode, max_iters=config.max_iterations, chunk=min(chunk, n),
+            from_raw=res_free,
+        )
+        del residuals_d
+        if res_free:
+            del xd
+        codebooks = codebooks_d.cpu().numpy()
+        codes = codes_d.cpu().numpy()
+        rnorms = rnorms_d.cpu().numpy()
     # codes live as (P, S_pad, pmax): subvectors, then slots
     codes_psp = _scatter_padded(codes, order, counts, pmax).transpose(0, 2, 1)
     s_pad = round_up(nsub, S_ALIGN)
@@ -979,7 +1026,13 @@ def refine_candidates(
     return np.take_along_axis(exact, order, axis=1), np.take_along_axis(row_ids, order, axis=1)
 
 
-def load_searcher(dataset, meta: IndexMeta, device=None) -> VectorSearcher:
+def load_searcher(dataset, meta: IndexMeta, device=None):
+    """The searcher of one index: HnswSearcher for the IVF_HNSW types,
+    VectorSearcher for the others."""
+    if meta.index_type.startswith("IVF_HNSW"):
+        from .hnsw import HnswSearcher
+
+        return HnswSearcher(dataset.store, dataset.index_dir(meta.uuid), meta, device)
     if meta.index_type not in PORTED_INDEX_TYPES:
         raise _not_ported(meta.index_type)
     return VectorSearcher(dataset.store, dataset.index_dir(meta.uuid), meta, device)

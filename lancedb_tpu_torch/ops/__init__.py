@@ -13,10 +13,24 @@ from .distance import normalize_metric, pairwise_distance, refine_distances, squ
 from .kmeans import (
     assign_residuals_device,
     ivf_train_assign_device,
+    kmeans_assign,
+    kmeans_assign_device,
+    kmeans_fit,
     kmeans_fit_device,
     kmeanspp_init_device,
 )
-from .pq import default_num_sub_vectors, pq_build_device
+from .pq import (
+    adc_lut,
+    adc_scan_lut,
+    default_num_sub_vectors,
+    opq_train,
+    pq_build_device,
+    pq_encode,
+    pq_encode_rnorms,
+    pq_reconstruct,
+    pq_reconstruct_device,
+    pq_train,
+)
 from .topk import mask_and_topk, merge_topk, topk_smallest
 
 __all__ = [
@@ -35,10 +49,21 @@ __all__ = [
     "squared_norms",
     "assign_residuals_device",
     "ivf_train_assign_device",
+    "kmeans_assign",
+    "kmeans_assign_device",
+    "kmeans_fit",
     "kmeans_fit_device",
     "kmeanspp_init_device",
+    "adc_lut",
+    "adc_scan_lut",
     "default_num_sub_vectors",
+    "opq_train",
     "pq_build_device",
+    "pq_encode",
+    "pq_encode_rnorms",
+    "pq_reconstruct",
+    "pq_reconstruct_device",
+    "pq_train",
     "mask_and_topk",
     "merge_topk",
     "topk_smallest",

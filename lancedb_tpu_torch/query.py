@@ -2,7 +2,7 @@
 
 Port of the vector-search part of the reference's query.py:
 
-  1. resolve the vector column and its index (FLAT, IVF_FLAT, IVF_PQ); compute the
+  1. resolve the vector column and its index (FLAT, IVF_FLAT, IVF_PQ, HNSW); compute the
      prefilter row-id set from the SQL predicate (host, Arrow compute)
   2. device search over the indexed fragments + brute force over
      unindexed "delta" fragments, merged on the host
@@ -23,7 +23,7 @@ import numpy as np
 import pyarrow as pa
 
 from ._surface import NotPortedSurface
-from .arrow import fsl_to_numpy, vector_column_name
+from .arrow import fsl_to_numpy, refuse_multivector, vector_column_name
 from .errors import InvalidInputError
 from .filters.sql import parse_sql_expr
 from .index.vector import SearchParams, brute_force_search
@@ -49,6 +49,7 @@ class VectorQueryRequest:
     minimum_nprobes: int = DEFAULT_NPROBES
     maximum_nprobes: int | None = DEFAULT_NPROBES
     refine_factor: int | None = None
+    ef: int | None = None  # HNSW search width
     precision: str = "default"  # FLAT scans and the brute force of delta rows
     select: list[str] | None = None
 
@@ -59,6 +60,7 @@ def execute_vector_query(table, req: VectorQueryRequest) -> pa.Table:
     column = req.column or vector_column_name(ds.schema)
     if not req.query_vectors:
         raise InvalidInputError("no query vector provided")
+    refuse_multivector(ds.schema, column)
     # nprobes validation (reference query.rs minimum/maximum_nprobes;
     # maximum_nprobes=0 means "no limit")
     if req.minimum_nprobes <= 0:
@@ -105,7 +107,7 @@ def execute_vector_query(table, req: VectorQueryRequest) -> pa.Table:
 
         def run(nprobes: int):
             params = SearchParams(k=req.k, nprobes=nprobes, refine_factor=req.refine_factor,
-                                  precision=req.precision)
+                                  ef=req.ef, precision=req.precision)
             d, r = searcher.search(queries, params, slot_penalty=pen)
             if req.refine_factor is not None and not searcher.will_fuse_refine(params):
                 d, r = searcher.refine(ds, column, queries, d, r, req.k)
@@ -232,7 +234,7 @@ class LanceVectorQueryBuilder(NotPortedSurface):
     _NOT_PORTED = {
         **dict.fromkeys(
             ("offset", "with_row_id", "with_row_address", "postfilter", "filter", "metric",
-             "distance_type", "distance_range", "bypass_vector_index", "fast_search", "ef",
+             "distance_type", "distance_range", "bypass_vector_index", "fast_search",
              "vector", "column", "order_by", "fragment_ids", "with_fragments",
              "to_batches", "to_pandas", "to_polars", "to_df", "to_table", "to_pyarrow",
              "to_json", "to_reader", "to_pydantic", "output_schema", "to_query_object",
@@ -286,6 +288,11 @@ class LanceVectorQueryBuilder(NotPortedSurface):
 
     def refine_factor(self, rf: int) -> "LanceVectorQueryBuilder":
         self._req.refine_factor = int(rf)
+        return self
+
+    def ef(self, ef: int) -> "LanceVectorQueryBuilder":
+        """HNSW search width (beam size); other index types ignore it."""
+        self._req.ef = int(ef)
         return self
 
     def precision(self, p: str) -> "LanceVectorQueryBuilder":

@@ -18,11 +18,15 @@ DEFAULT_INDEX_CACHE_BYTES = 8 << 30
 
 def _searcher_nbytes(searcher) -> int:
     """Bytes a searcher holds: its device tensors (torch or numpy, both
-    report ``.nbytes``) and its host slot → row-id map."""
+    report ``.nbytes``), its host slot → row-id map and, for HNSW, the
+    host storage its walks read."""
     total = sum(arr.nbytes for arr in getattr(searcher, "_device", {}).values())
     rids = getattr(searcher, "row_ids_flat", None)
     if rids is not None:
         total += rids.nbytes
+    storage = getattr(searcher, "storage", None)
+    if storage is not None:
+        total += sum(v.nbytes for v in vars(storage).values() if hasattr(v, "nbytes"))
     return max(total, 1)
 
 

@@ -1,8 +1,8 @@
 """Table API: the user-facing handle over one versioned dataset.
 
 Port of the slice of the reference's table.py that the ported paths
-run: add, delete, count_rows, create_index (FLAT, IVF_FLAT, IVF_PQ) and
-search. The device
+run: add, delete, count_rows, create_index (FLAT, IVF_FLAT, IVF_PQ and
+the HNSW family) and search. The device
 chosen at ``connect()`` travels from the connection to every index
 build and searcher of the table. The rest of the reference's surface
 raises NotImplementedError naming its ROADMAP item.
@@ -18,7 +18,7 @@ from ._surface import NotPortedSurface
 from .arrow import sanitize_vectors, to_arrow_table
 from .arrow import vector_column_name as _vector_column_name
 from .errors import InvalidInputError
-from .index import Flat, IvfFlat, IvfPq
+from .index import Flat, HnswFlat, HnswPq, HnswSq, IvfFlat, IvfPq
 from .query import LanceVectorQueryBuilder
 from .storage.dataset import Dataset
 
@@ -141,13 +141,13 @@ class Table(NotPortedSurface):
         sample_rate: int = 256,
         max_iterations: int = 50,
         *,
-        config: IvfPq | IvfFlat | Flat | None = None,
+        config: IvfPq | IvfFlat | Flat | HnswFlat | HnswSq | HnswPq | None = None,
         name: str | None = None,
     ) -> None:
-        """Build a FLAT, IVF_FLAT or IVF_PQ vector index on the
-        connection's device (reference table.py:2604 create_index). The
-        other index types raise, naming their ROADMAP item (IVF_SQ and
-        IVF_RQ: A7; HNSW: A8)."""
+        """Build a FLAT, IVF_FLAT, IVF_PQ or IVF_HNSW_* vector index on the
+        connection's device (reference table.py:2604 create_index). IVF_SQ
+        and IVF_RQ raise, naming their ROADMAP item (A7)."""
+        from .index.hnsw import HNSW_INDEX_TYPES, build_hnsw_index
         from .index.vector import PORTED_INDEX_TYPES, _not_ported, build_vector_index
 
         column = vector_column_name or _vector_column_name(self.schema)
@@ -171,13 +171,22 @@ class Table(NotPortedSurface):
                 )
             elif it == "FLAT":
                 config = Flat(distance_type=metric)
+            elif it in HNSW_INDEX_TYPES:
+                cls = {"IVF_HNSW_FLAT": HnswFlat, "IVF_HNSW_SQ": HnswSq, "IVF_HNSW_PQ": HnswPq}[it]
+                kwargs = dict(distance_type=metric, num_partitions=num_partitions)
+                if it == "IVF_HNSW_PQ":
+                    kwargs["num_sub_vectors"] = num_sub_vectors
+                config = cls(**kwargs)
             else:
                 raise _not_ported(it)
-        if config.index_type not in PORTED_INDEX_TYPES:
+        if config.index_type in HNSW_INDEX_TYPES:
+            build = build_hnsw_index
+        elif config.index_type in PORTED_INDEX_TYPES:
+            build = build_vector_index
+        else:
             raise _not_ported(config.index_type)
-        meta = build_vector_index(
-            self._dataset, column, config, name=name or f"{column}_idx", device=self._device
-        )
+        meta = build(self._dataset, column, config, name=name or f"{column}_idx",
+                     device=self._device)
         self._dataset.add_index(meta, replace=replace)
         self._invalidate_caches()
 

@@ -19,7 +19,7 @@ sys.modules["jax"] = None          # any import of jax now fails
 sys.modules["lancedb_tpu"] = None  # and so does any import of the reference
 import numpy as np, pyarrow as pa, torch
 import lancedb_tpu_torch
-from lancedb_tpu_torch.index import IvfFlat, IvfPq
+from lancedb_tpu_torch.index import HnswFlat, IvfFlat, IvfPq
 from lancedb_tpu_torch.ops import ivf_pq_adc_grouped_scan
 from lancedb_tpu_torch.ops.probe_kernels import adc_sum, smem_gather
 from lancedb_tpu_torch.probes import ab_adc8, ab_gather_min, common, probe_adc_grouped, probe_pq_real
@@ -35,6 +35,9 @@ assert out["id"][0].as_py() == 7, out
 tbl.create_index(config=IvfFlat(num_partitions=4, max_iterations=5))
 out = tbl.search(x[9] + 0.01).nprobes(2).limit(3).to_arrow()
 assert out["id"][0].as_py() == 9, out
+tbl.create_index(config=HnswFlat(m=8))
+out = tbl.search(x[5] + 0.01).ef(32).limit(3).to_arrow()
+assert out["id"][0].as_py() == 5, out
 args = probe_adc_grouped.make_inputs(rng, 8, 16, "cpu", p=16, pmax=128, q=8, np_=3)
 assert ivf_pq_adc_grouped_scan(*args).shape == (8, 3, 128)
 assert adc_sum(args[1], args[2], 5, "select").shape == (5, 128)
@@ -93,7 +96,7 @@ def test_unported_surface_names_its_roadmap_item(tmp_path):
         (lambda: tbl.create_fts_index("id"), "A12"),
         (lambda: tbl.search(x[0]).offset(1), "A4"),
         (lambda: db.drop_table("t"), "A4"),
-        (lambda: tbl.create_index(index_type="IVF_HNSW_PQ"), "A8"),
+        (lambda: tbl.create_index(index_type="IVF_RQ"), "A7"),
     ):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             call()

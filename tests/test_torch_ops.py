@@ -6,6 +6,7 @@ orders), with an atol of 1e-5 of the largest magnitude where values
 cancel towards 0.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from lancedb_tpu.ops import topk as jtopk
 from lancedb_tpu_torch.index import vector as tvec
 from lancedb_tpu_torch.ops import distance as tdist
 from lancedb_tpu_torch.ops import kmeans as tkm
+from lancedb_tpu_torch.ops import prng
 from lancedb_tpu_torch.ops import pq as tpq
 from lancedb_tpu_torch.ops import topk as ttopk
 
@@ -95,8 +97,7 @@ def test_metric_and_subvector_defaults():
 @pytest.mark.parametrize("metric", ["l2", "dot"])
 def test_kmeans_fit_from_shared_init(metric):
     """Lloyd from the same seeding and reseed rows: same centroids and
-    assignments (the k-means++ draws differ by design: torch.Generator
-    vs jax.random)."""
+    assignments."""
     rng = np.random.default_rng(4)
     x = _clustered(rng, 600, 16)
     init = x[rng.choice(600, 8, replace=False)]
@@ -110,14 +111,47 @@ def test_kmeans_fit_from_shared_init(metric):
 
 
 def test_kmeanspp_seeding_is_seeded():
-    x = torch.from_numpy(_clustered(np.random.default_rng(5), 400, 8))
-    a = tkm.kmeanspp_init_device(x, torch.Generator().manual_seed(3), k=6)
-    b = tkm.kmeanspp_init_device(x, torch.Generator().manual_seed(3), k=6)
+    """k-means++ from a key picks the reference's rows from the same key,
+    one key per batch member when batched."""
+    xn = _clustered(np.random.default_rng(5), 400, 8)
+    x = torch.from_numpy(xn)
+    a = tkm.kmeanspp_init_device(x, prng.prng_key(3), k=6)
+    b = tkm.kmeanspp_init_device(x, prng.prng_key(3), k=6)
     assert torch.equal(a, b)
+    want = jkm.kmeanspp_init_device(jnp.asarray(xn), jax.random.PRNGKey(3), k=6)
+    np.testing.assert_array_equal(a.numpy(), np.asarray(want))
+    xb = np.stack([xn, xn[::-1].copy(), xn * 2.0])
+    got = tkm.kmeanspp_init_device(torch.from_numpy(xb), prng.split(prng.prng_key(9), 3), k=5)
+    want = jax.vmap(lambda xs, kk: jkm.kmeanspp_init_device(xs, kk, k=5))(
+        jnp.asarray(xb), jax.random.split(jax.random.PRNGKey(9), 3))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     # every seed is a data row, and no row is picked twice
     rows = {tuple(r) for r in x.numpy().tolist()}
     assert all(tuple(r) in rows for r in a.numpy().tolist())
     assert len({tuple(r) for r in a.numpy().tolist()}) == 6
+
+
+@pytest.mark.parametrize("seed", [0, 41536, 2**31 - 1])
+def test_prng_draws_match_jax(seed):
+    """prng computes jax.random's threefry draws: keys, splits, bits and
+    randint exactly, Gumbel noise to 1e-6 absolute (the logarithms
+    differ in the last bit)."""
+    key = jax.random.PRNGKey(seed)
+    tkey = prng.prng_key(seed)
+    np.testing.assert_array_equal(tkey.numpy(), np.asarray(key).astype(np.int64))
+    np.testing.assert_array_equal(prng.split(tkey, 192).numpy(),
+                                  np.asarray(jax.random.split(key, 192)).astype(np.int64))
+    k0, kg = jax.random.split(key)
+    tk0, tkg = prng.split(tkey)
+    for n in (1, 400, 65_536, 1_000_000):
+        assert int(prng.randint(tk0, n)) == int(jax.random.randint(k0, (), 0, n))
+    np.testing.assert_array_equal(
+        prng.random_bits(tkg, 0, 1000).numpy(),
+        np.asarray(jax.random.bits(kg, (1000,), dtype=jnp.uint32)).astype(np.int64))
+    want = np.asarray(jax.random.gumbel(kg, (5, 300), dtype=jnp.float32))
+    got = prng.gumbel(tkg, 0, 1500).numpy().reshape(5, 300)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(prng.gumbel(tkg, 600, 300).numpy(), got[2])
 
 
 @pytest.mark.parametrize("metric", ["l2", "dot"])
