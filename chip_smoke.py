@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                 # every phase (needs one CUDA card)
     python3 chip_smoke.py --phase kernels # build and check the kernels only
-    python3 chip_smoke.py --phase hnsw    # path e alone (or --phase large_d: path d)
+    python3 chip_smoke.py --phase hnsw    # path e alone (or --phase large_d: path d;
+                                          # --phase fts: path f)
     python3 chip_smoke.py --out smoke.json # also write the full summary as JSON
 
 Phases:
@@ -79,6 +80,26 @@ Phases:
      version on the searcher's inputs; the residual-free encode held to
      the buffered one on a 65,536-row slice. Recall bars: the
      reference's (BASELINE.md:87-88) less 0.03, refined at least 0.95.
+  6. path f, full text and hybrid (bench.py:1296 run_fts_hybrid_config,
+     BASELINE config #5 on one card), after asserting that the native
+     library (native/lancedb_native.cpp, built with g++) loaded:
+     FTS over 1,000,000 make_corpus docs (Zipf 1.3, 30k words, 8-word
+     docs; seed 1042): create_fts_index(with_position=True), timed, then
+     the bench's three mixes (default_rng(2042): 100 mid-frequency OR
+     pairs, 50 phrases, 50 common-term pairs), qps per mix, the first 10
+     queries of each held to an exhaustive numpy BM25 over the index's
+     CSR arrays (scores to 1e-5, every doc above the 10th hit present).
+     Hybrid on path a's 1M x 128 table with a make_corpus text column
+     (seed 1043): IVF_PQ 1024 partitions 4-bit x32, an FTS index without
+     positions; 64 (vector, text) pairs (path a's first 64 queries,
+     texts as bench.py:1403 draws them from default_rng(3042)), one call
+     each and one add_query call of all 64; every fused top-10 equals a
+     numpy RRF (K 60) of its two legs; the vector leg's recall@10 holds
+     path a's 4-bit bar; B1 launches once per single call and once per
+     batched call. Then where("category = 3") by the scan, a BITMAP index
+     on category, and again: the same results, every hit category 3, the
+     index's allowed set equal to the scan's, and the prefilter's ms by
+     each way; B1 checked at the batched hybrid's shapes.
 
 Prints, on lines before the last, the card's name and power limit, a
 ``kernels:`` line and one JSON object ``{"kernels": [...]}``; the last
@@ -1295,12 +1316,13 @@ def kernel_phases(phase: str, card: str) -> tuple[dict, list[dict]]:
         summary["main_path"] = results
         summary["probes"] = probes_phase(card)
         summary["large_d"], large_d_kernels = large_d_path(card)
+        summary["fts"], fts_kernels = fts_phase(card)
         counts: dict = {}  # launches on the main path, per kernel
         for r in main_kernels:
             counts[r["counter"]] = counts.get(r["counter"], 0) + r["launches"]
         for r in grouped + flat_line:
             r["launches"] = counts[r["counter"]]
-        kernels = main_kernels + large_d_kernels + grouped + flat_line
+        kernels = main_kernels + large_d_kernels + fts_kernels + grouped + flat_line
     kernels += probe_kernels
     return summary, kernels
 
@@ -1315,10 +1337,349 @@ def hnsw_only(card: str) -> dict:
         return hnsw_path(lancedb_tpu_torch.connect(tmp), x, card)
 
 
+# ---------------------------------------------------------------- path f
+
+FTS_DOCS = 1_000_000  # bench.py:1307 run_fts_hybrid_config's n_docs, uncut
+HYBRID_ROWS = 1_000_000  # the bench's 100,000 raised to path a's table
+RRF_K = 60
+
+
+def make_corpus(rng, n):
+    """Zipf-ish synthetic text: 30k-word vocabulary, 8-word docs (a copy of
+    bench.py:426 make_corpus, which cannot be imported without JAX)."""
+    ranks = np.clip(rng.zipf(1.3, size=n * 8), 1, 30_000) - 1
+    docs = np.char.add("w", ranks.astype("U6")).reshape(n, 8)
+    return [" ".join(row) for row in docs]
+
+
+def bm25_oracle(col, tokens: list[str], phrase: bool, k: int = 10):
+    """Exhaustive BM25 over the index's CSR arrays in numpy (k1 1.2, b 0.75):
+    every doc's score for an OR of the unique terms, or, for a phrase, the
+    summed per-token scores of the docs where the tokens stand at
+    consecutive positions. Returns (scores over all docs, top-k docs)."""
+    from lancedb_tpu_torch.index.fts import B, K1
+
+    n = col.num_docs
+    norm = (K1 * (1.0 - B + B * col.doc_lens / max(col.avgdl, 1e-9))).astype(np.float32)
+    tids = [col.vocab.get(t) for t in tokens]
+    scores = np.zeros(n, np.float64)
+    if any(t is None for t in tids) and phrase:
+        return scores.astype(np.float32), np.empty(0, np.int64)
+    tids = [t for t in tids if t is not None]
+    if not phrase:
+        tids = sorted(set(tids))
+    off = np.asarray(col.postings_offsets)
+    keep = np.ones(n, bool)
+    if phrase:  # docs where token i stands at position p + i
+        starts = None
+        for i, t in enumerate(tids):
+            s, e = off[t], off[t + 1]
+            docs = np.asarray(col.postings_docs[s:e])
+            pa_, pb = col.pos_offsets[s:e], col.pos_offsets[s + 1:e + 1]
+            cnt = (pb - pa_).astype(np.int64)
+            pos = np.concatenate([col.positions[a:b] for a, b in zip(pa_, pb)]) if e > s \
+                else np.empty(0, np.int64)
+            key = np.repeat(docs, cnt) * 4096 + pos.astype(np.int64) - i
+            starts = key if starts is None else np.intersect1d(starts, key)
+        keep = np.zeros(n, bool)
+        keep[np.unique(starts // 4096)] = True
+    for t in tids:
+        s, e = off[t], off[t + 1]
+        docs = np.asarray(col.postings_docs[s:e])
+        tf = np.asarray(col.postings_tf[s:e]).astype(np.float32)
+        idf = np.float32(np.log(1.0 + (n - float(col.df[t]) + 0.5) / (float(col.df[t]) + 0.5)))
+        scores += np.bincount(docs, weights=idf * tf * (K1 + 1.0) / (tf + norm[docs]),
+                              minlength=n)
+    scores = np.where(keep, scores, 0.0).astype(np.float32)
+    top = np.argsort(-scores, kind="stable")[:k]
+    return scores, top[scores[top] > 0]
+
+
+def check_fts_hits(col, query: str, got_rowids, got_scores, label: str) -> float:
+    """Hold one query's top-10 to bm25_oracle: the scores pairwise (1e-5),
+    each hit's own score, and every doc that scores above the 10th hit
+    present (ties at the cut may take any of the tied docs, as the native
+    scorers do). Returns max|err|."""
+    phrase = query.startswith('"')
+    tokens = col.tokenizer.tokenize(query.strip('"'))
+    scores, top = bm25_oracle(col, tokens, phrase)
+    want = scores[top]
+    got_scores = np.asarray(got_scores, np.float32)
+    if len(got_scores) != len(want):
+        raise AssertionError(f"{label} {query!r}: {len(got_scores)} hits, oracle {len(want)}")
+    err = float(np.max(np.abs(got_scores - want))) if len(want) else 0.0
+    if not np.allclose(got_scores, want, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"{label} {query!r}: scores {got_scores} != oracle {want}")
+    docs = col._sorted_order[np.searchsorted(col._sorted_rowids,
+                                             np.asarray(got_rowids, np.uint64))]
+    if not np.allclose(scores[docs], got_scores, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"{label} {query!r}: a hit's own score is not the oracle's")
+    if len(want):
+        must = set(np.nonzero(scores > want[-1] + 1e-5)[0].tolist())
+        if not must <= set(docs.tolist()):
+            raise AssertionError(f"{label} {query!r}: a doc above the cut is missing")
+    return err
+
+
+def numpy_rrf(v_ids: np.ndarray, f_ids: np.ndarray, k: int = 10):
+    """RRF (K 60) of two ranked row-id lists in numpy: the sum of 1/(K +
+    rank) over the lists, ordered by descending score, ties in order of
+    first appearance (the vector list first)."""
+    ids = np.concatenate([v_ids, f_ids]).astype(np.uint64)
+    ranks = np.concatenate([np.arange(1, len(v_ids) + 1), np.arange(1, len(f_ids) + 1)])
+    uniq, first, inv = np.unique(ids, return_index=True, return_inverse=True)
+    score = np.zeros(len(uniq))
+    np.add.at(score, inv, 1.0 / (RRF_K + ranks))
+    by_first = np.argsort(first, kind="stable")
+    uniq, score = uniq[by_first], score[by_first]
+    order = np.argsort(-score, kind="stable")[:k]
+    return uniq[order], score[order].astype(np.float32)
+
+
+def check_rrf(fused, v_leg, f_leg, label: str) -> None:
+    """One fused top-10 against numpy_rrf of its two legs: ids exactly,
+    relevance to 1e-6."""
+    want_ids, want_rel = numpy_rrf(np.asarray(v_leg.column("_rowid")),
+                                   np.asarray(f_leg.column("_rowid")))
+    got_ids = np.asarray(fused.column("_rowid")).astype(np.uint64)
+    got_rel = np.asarray(fused.column("_relevance_score"))
+    if not np.array_equal(got_ids, want_ids) or not np.allclose(got_rel, want_rel, atol=1e-6):
+        raise AssertionError(f"{label}: fused top-10 is not the RRF of its legs")
+
+
+def timed(fn, reps: int = 1):
+    """(result of the last call, median host seconds of ``reps`` calls)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return out, float(np.median(times))
+
+
+def fts_mixes() -> dict:
+    """The bench's three query mixes (bench.py:1352-1381), from default_rng(2042)."""
+    qrng = np.random.default_rng(2042)
+    qterms = [f"w{r}" for r in qrng.integers(50, 2000, size=200)]
+    return {
+        "or_mid": [f"{qterms[2 * i]} {qterms[2 * i + 1]}" for i in range(100)],
+        "phrase": [f'"{qterms[2 * i]} {qterms[2 * i + 1]}"' for i in range(50)],
+        "or_common": [f"w{r} w{r + 1}" for r in qrng.integers(0, 30, size=50)],
+    }
+
+
+def fts_corpus_path(db, card: str) -> dict:
+    """FTS over 1,000,000 docs (bench.py:1296 run_fts_hybrid_config): build
+    with positions, then each query mix through search(query_type="fts"),
+    the first 10 queries of each held to bm25_oracle."""
+    import pyarrow as pa
+
+    t0 = time.perf_counter()
+    docs = make_corpus(np.random.default_rng(1042), FTS_DOCS)
+    tbl = db.create_table("fts_bench", pa.table({"id": np.arange(FTS_DOCS), "text": docs}))
+    del docs
+    rec: dict = {"docs": FTS_DOCS, "corpus_and_table_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    tbl.create_fts_index("text", with_position=True)
+    rec["build_s"] = time.perf_counter() - t0
+    col = tbl._get_fts_index(tbl._dataset.manifest.indices[0]).by_column["text"]
+    rec["postings"], rec["terms"] = int(len(col.postings_docs)), int(len(col.df))
+    print(f"[fts] corpus + table {rec['corpus_and_table_s']:.3f} s, build {rec['build_s']:.3f} s "
+          f"({rec['postings']} postings, {rec['terms']} terms; {card})", flush=True)
+    for mix, queries in fts_mixes().items():
+        for q in queries[:3]:  # warm, as the bench does
+            tbl.search(q, query_type="fts").limit(10).to_arrow()
+        t0 = time.perf_counter()
+        outs = [tbl.search(q, query_type="fts").limit(10).with_row_id().to_arrow()
+                for q in queries]
+        dt = time.perf_counter() - t0
+        err = max(check_fts_hits(col, q, out.column("_rowid"), out.column("_score"), mix)
+                  for q, out in zip(queries[:10], outs[:10]))
+        rec[mix] = {"queries": len(queries), "qps": len(queries) / dt,
+                    "ms_per_query": dt / len(queries) * 1e3, "oracle_max_abs_err": err,
+                    "mean_hits": float(np.mean([o.num_rows for o in outs]))}
+        print(f"[fts] {mix} ({card}): {json.dumps(rec[mix])}", flush=True)
+    # the bench's phrases rarely hit (mean_hits): hold phrases of common
+    # pairs to the oracle too, untimed
+    hits = []
+    for q in [f'"{p}"' for p in fts_mixes()["or_common"][:10]]:
+        out = tbl.search(q, query_type="fts").limit(10).with_row_id().to_arrow()
+        check_fts_hits(col, q, out.column("_rowid"), out.column("_score"), "common phrase")
+        hits.append(out.num_rows)
+    rec["common_phrase_hits_checked"] = hits
+    return rec
+
+
+def hybrid_path(db, card: str) -> tuple[dict, dict]:
+    """Hybrid RRF on 1,000,000 rows (bench.py:1383-1425 at path a's table):
+    path a's clustered vectors, category = id % 10 and a make_corpus text
+    column; IVF_PQ 1024 partitions 4-bit x32, an FTS index without
+    positions, then a BITMAP index on category. Returns (summary, the B1
+    record at the batched hybrid's shapes)."""
+    import pyarrow as pa
+    import torch
+
+    from lancedb_tpu_torch.index import IvfPq
+    from lancedb_tpu_torch.ops import adc
+    from lancedb_tpu_torch.probes.common import make_clustered
+    from lancedb_tpu_torch.query import ROW_ID_COL, compute_allowed_rowids
+
+    n, dim, k = HYBRID_ROWS, 128, 10
+    t0 = time.perf_counter()
+    x, queries = make_clustered(np.random.default_rng(0), n, dim, n_queries=256)
+    ids = np.arange(n, dtype=np.int64)
+    data = pa.table({
+        "id": ids, "category": (ids % 10).astype(np.int64),
+        "text": make_corpus(np.random.default_rng(1043), n),
+        "vector": pa.FixedSizeListArray.from_arrays(pa.array(x.ravel()), dim),
+    })
+    qv = queries[:64]
+    qt = [f"w{r} w{r + 3}" for r in np.random.default_rng(3042).integers(50, 2000, size=64)]
+    x_d = torch.from_numpy(x).cuda()
+    gt = exact_gt(x_d, torch.sum(x_d * x_d, dim=1), qv, k)
+    del x_d, x
+    torch.cuda.empty_cache()
+    tbl = db.create_table("hybrid_bench", data)
+    del data
+    rec: dict = {"rows": n, "data_and_table_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    tbl.create_index(config=IvfPq(num_partitions=1024, num_sub_vectors=32, num_bits=4))
+    torch.cuda.synchronize()
+    rec["ivf_pq_build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tbl.create_fts_index("text", with_position=False)
+    rec["fts_build_s"] = time.perf_counter() - t0
+    print(f"[hybrid] data + table {rec['data_and_table_s']:.3f} s, IVF_PQ build "
+          f"{rec['ivf_pq_build_s']:.3f} s, FTS build {rec['fts_build_s']:.3f} s ({card})",
+          flush=True)
+
+    def legs(i=None):
+        """The two legs as the hybrid runs them: the vector leg for one
+        query or all 64 at once, the FTS legs one query each."""
+        vq = qv if i is None else qv[i]
+        v = tbl.search(vq).limit(k).with_row_id().to_arrow()
+        texts = qt if i is None else [qt[i]]
+        return v, [tbl.search(t, query_type="fts").limit(k).with_row_id().to_arrow()
+                   for t in texts]
+
+    def batched(where=None):
+        b = tbl.search((qv[0], qt[0]), query_type="hybrid").limit(k).with_row_id()
+        for i in range(1, 64):
+            b.add_query(qv[i], qt[i])
+        if where:
+            b = b.where(where)
+        return b.to_arrow()
+
+    def per_query(where=None):
+        outs = []
+        for i in range(64):
+            b = tbl.search((qv[i], qt[i]), query_type="hybrid").limit(k).with_row_id()
+            outs.append((b.where(where) if where else b).to_arrow())
+        return outs
+
+    # the vector leg's recall, and each fused top-10 against numpy RRF
+    v_all, f_all = legs()
+    vq_idx = np.asarray(v_all.column("query_index"))
+    rec["vector_leg_recall@10"] = recall(hit_ids(v_all, 64, k), gt)
+    per_query()  # warm: the searcher and the FTS index load
+    adc.reset_launch_counts()
+    singles, single_s = timed(per_query)
+    rec["single_launches_b1"] = adc.launch_counts["ivf_pq_adc_scan"]
+    adc.reset_launch_counts()
+    fused_all, batch_s = timed(batched, reps=3)
+    rec["batched_launches_b1"] = adc.launch_counts["ivf_pq_adc_scan"] // 3
+    rec["per_query_qps"], rec["batched_qps"] = 64 / single_s, 64 / batch_s
+    rec["batched_ms"] = batch_s * 1e3
+    f_qidx = np.asarray(fused_all.column("query_index"))
+    for i in range(64):
+        check_rrf(fused_all.filter(pa.array(f_qidx == i)),
+                  v_all.filter(pa.array(vq_idx == i)), f_all[i], f"batched hybrid {i}")
+        v1, f1 = legs(i)
+        check_rrf(singles[i], v1, f1[0], f"hybrid {i}")
+    print(f"[hybrid] unfiltered ({card}): {json.dumps(rec)}", flush=True)
+
+    # filtered: the scan, then a BITMAP index on category
+    pred = "category = 3"
+    ds = tbl._dataset
+
+    def scan_allowed():
+        t = ds.to_table(columns=[], predicate=pred, with_row_id=True)
+        return np.sort(t.column(ROW_ID_COL).to_numpy().astype(np.uint64))
+
+    def filtered_search():
+        return tbl.search(queries).nprobes(20).limit(k).where(pred).select(["id", "category"]) \
+            .to_arrow()
+
+    flt: dict = {}
+    filtered_search()
+    out_scan, s = timed(filtered_search, reps=3)
+    flt["ivf_pq_256q_scan_ms"] = s * 1e3
+    flt["prefilter_scan_ms"] = host_ms(lambda: compute_allowed_rowids(tbl, pred))
+    batched(pred)
+    hyb_scan, s = timed(lambda: batched(pred), reps=3)
+    flt["hybrid_batched_scan_ms"] = s * 1e3
+    t0 = time.perf_counter()
+    tbl.create_scalar_index("category", index_type="BITMAP")
+    flt["bitmap_build_s"] = time.perf_counter() - t0
+    flt["prefilter_index_ms"] = host_ms(lambda: compute_allowed_rowids(tbl, pred))
+    if not np.array_equal(compute_allowed_rowids(tbl, pred), scan_allowed()):
+        raise AssertionError("the BITMAP index's allowed set is not the scan's")
+    filtered_search()
+    out_ix, s = timed(filtered_search, reps=3)
+    flt["ivf_pq_256q_index_ms"] = s * 1e3
+    batched(pred)
+    hyb_ix, s = timed(lambda: batched(pred), reps=3)
+    flt["hybrid_batched_index_ms"] = s * 1e3
+    for name, a, b in (("IVF_PQ filtered", out_scan, out_ix),
+                       ("hybrid filtered", hyb_scan, hyb_ix)):
+        if not a.equals(b):
+            raise AssertionError(f"{name}: results with the BITMAP index differ from the scan's")
+        if not np.all(np.asarray(b.column("category")) == 3):
+            raise AssertionError(f"{name}: a hit has category != 3")
+    rec["filtered"] = flt
+    print(f"[hybrid] filtered {pred!r} ({card}): {json.dumps(flt)}", flush=True)
+
+    bar = RAW_RECALL_BARS[4] - 0.03
+    if rec["vector_leg_recall@10"] < bar:
+        raise AssertionError(f"hybrid vector leg recall {rec['vector_leg_recall@10']} < {bar}")
+    if rec["single_launches_b1"] < 64 or rec["batched_launches_b1"] != 1:
+        raise AssertionError(f"B1 launches in the hybrid calls: {rec['single_launches_b1']} "
+                             f"per 64 single, {rec['batched_launches_b1']} per batched call")
+    searcher = next(tbl._get_searcher(ix) for ix in tbl._dataset.manifest.indices
+                    if ix.index_type == "IVF_PQ")
+    krec = check_adc(searcher_adc_args(searcher, qv), "hybrid batched vector leg")
+    krec["launches"] = rec["batched_launches_b1"]
+    return rec, krec
+
+
+def fts_phase(card: str) -> tuple[dict, list[dict]]:
+    """Path f: FTS over 1M docs and hybrid RRF over the 1M x 128 table,
+    with the native library asserted before anything is timed."""
+    import lancedb_tpu_torch
+    from lancedb_tpu_torch.native import native_available
+
+    available = native_available()
+    print(f"[fts] native_available() = {available}", flush=True)
+    if not available:
+        raise AssertionError("the native FTS library did not build: the phase would time the "
+                             "pure-Python scorers")
+    results: dict = {"card": card, "native_available": available}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fts_") as tmp:
+        db = lancedb_tpu_torch.connect(tmp)
+        results["fts"] = fts_corpus_path(db, card)
+        results["hybrid"], krec = hybrid_path(db, card)
+    print(f"card: {card}", flush=True)
+    return results, [krec]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("all", "kernels", "large_d", "hnsw"), default="all",
-                    help="kernels: the kernel checks only; large_d, hnsw: that path only")
+    ap.add_argument("--phase", choices=("all", "kernels", "large_d", "hnsw", "fts"),
+                    default="all",
+                    help="kernels: the kernel checks only; large_d, hnsw, fts: that path only")
     ap.add_argument("--out", help="also write the full summary as JSON to this file")
     a = ap.parse_args()
     if not (REPO / "lancedb_tpu_torch" / "csrc").is_dir():
@@ -1349,9 +1710,11 @@ def main() -> int:
 
     summary: dict = {}
     kernels: list[dict] = []
-    if a.phase in ("large_d", "hnsw"):
+    if a.phase in ("large_d", "hnsw", "fts"):
         if a.phase == "large_d":
             summary["large_d"], kernels = large_d_path(card)
+        elif a.phase == "fts":
+            summary["fts"], kernels = fts_phase(card)
         else:
             summary["hnsw"] = hnsw_only(card)
     else:

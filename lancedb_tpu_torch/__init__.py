@@ -11,9 +11,13 @@ Same surface and on-disk format as ``lancedb_tpu``:
     tbl.create_index(config=IvfFlat(num_partitions=1024))  # or Flat()
     tbl.create_index(config=HnswFlat())  # or HnswSq(), HnswPq()
     tbl.search(q).ef(64).limit(10).to_arrow()
+    tbl.create_fts_index("text"); tbl.create_scalar_index("category", index_type="BITMAP")
+    tbl.search("quick fox", query_type="fts").limit(10).to_arrow()
+    tbl.search((q, "quick fox"), query_type="hybrid").rerank(RRFReranker()).to_arrow()
 
 The package imports neither JAX nor ``lancedb_tpu``; CUDA kernels build
-from ``csrc/`` with nvcc on first use.
+from ``csrc/`` with nvcc on first use, and the host library of the
+full-text index from ``native/lancedb_native.cpp`` with g++.
 """
 
 from .db import LanceDBConnection, connect
@@ -24,7 +28,20 @@ from .errors import (
     TableAlreadyExistsError,
     TableNotFoundError,
 )
-from .index import Flat, HnswFlat, HnswPq, HnswSq, IvfFlat, IvfPq
+from .index import (
+    FTS,
+    Auto,
+    Bitmap,
+    BTree,
+    Flat,
+    Fm,
+    HnswFlat,
+    HnswPq,
+    HnswSq,
+    IvfFlat,
+    IvfPq,
+    LabelList,
+)
 from .session import Session
 from .table import Table
 
@@ -35,6 +52,12 @@ __all__ = [
     "LanceDBConnection",
     "Table",
     "Session",
+    "Auto",
+    "Bitmap",
+    "BTree",
+    "FTS",
+    "Fm",
+    "LabelList",
     "Flat",
     "HnswFlat",
     "HnswPq",

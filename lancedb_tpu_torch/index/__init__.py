@@ -1,13 +1,14 @@
-"""Index configuration — the FLAT, IVF_FLAT, IVF_PQ and HNSW part of the
+"""Index configuration — the FLAT, IVF_FLAT, IVF_PQ, HNSW, scalar
+(BTREE, BITMAP, LABEL_LIST, FM) and full-text (FTS) part of the
 reference's index surface.
 
-The other index types (IVF_SQ, IVF_RQ, scalar and full-text indexes)
-wait for later slices (ROADMAP A7, A12).
+IVF_SQ and IVF_RQ wait for a later slice (ROADMAP A7).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Literal
 
 
 @dataclass
@@ -99,6 +100,80 @@ class HnswFlat:
     ef_construction: int = 300
 
     index_type: str = "IVF_HNSW_FLAT"
+
+
+@dataclass
+class BTree:
+    """Sorted scalar index for range/equality predicates (reference BTree,
+    4096-row blocks — index/scalar.rs:14-29)."""
+
+    index_type: str = "BTREE"
+
+
+@dataclass
+class Bitmap:
+    """Per-value bitmap index for low-cardinality columns."""
+
+    index_type: str = "BITMAP"
+
+
+@dataclass
+class LabelList:
+    """Bitmap index over list-valued label columns."""
+
+    index_type: str = "LABEL_LIST"
+
+
+@dataclass
+class Fm:
+    """Substring-search scalar index (reference `Fm`, index.rs:31-56):
+    resolves ``col LIKE '%needle%'`` (and prefix/suffix/exact LIKEs)
+    from the index alone. Backed by a suffix array over the
+    concatenated column text — same capability as the reference's
+    FM-index, host-side structure chosen for numpy-friendly builds."""
+
+    index_type: str = "FM"
+
+
+@dataclass
+class FTS:
+    """BM25 full-text index (reference FtsIndexBuilder + python index.py
+    tokenizer params, index.py:111-188)."""
+
+    with_position: bool = True
+    base_tokenizer: Literal[
+        "simple", "whitespace", "raw", "ngram", "unicode", "cjk",
+        "icu", "jieba", "lindera",
+    ] = "simple"
+    language: str = "English"
+    max_token_length: int | None = 40
+    lower_case: bool = True
+    stem: bool = True
+    remove_stop_words: bool = True
+    ascii_folding: bool = True
+    ngram_min_length: int = 3
+    ngram_max_length: int = 3
+    prefix_only: bool = False
+    # user dictionary for the jieba/lindera dictionary-backed CJK
+    # segmenters (jieba format: 'word [freq [tag]]' per line)
+    dict_path: str | None = None
+
+    index_type: str = "FTS"
+
+
+@dataclass
+class Auto:
+    """Pick the index from the column's type (reference ``Index::Auto``,
+    table/create_index.rs:186-213): vector columns get IVF_PQ;
+    numeric/temporal/string/boolean columns get BTREE; anything else is
+    an error."""
+
+    distance_type: str = "l2"
+
+    index_type: str = "AUTO"
+
+
+SCALAR_INDEX_TYPES = {"BTREE", "BITMAP", "LABEL_LIST", "FM"}
 
 
 def default_num_partitions(num_rows: int) -> int:

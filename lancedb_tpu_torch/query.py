@@ -1,23 +1,29 @@
-"""Vector query builder + execution.
+"""Query builders + execution: vector, full-text and hybrid search.
 
-Port of the vector-search part of the reference's query.py:
+Port of the reference's query.py:
 
   1. resolve the vector column and its index (FLAT, IVF_FLAT, IVF_PQ, HNSW); compute the
-     prefilter row-id set from the SQL predicate (host, Arrow compute)
+     prefilter row-id set from the SQL predicate (a scalar-index lookup when
+     one serves the predicate, else a host Arrow-compute scan)
   2. device search over the indexed fragments + brute force over
      unindexed "delta" fragments, merged on the host
   3. optional exact refine (fused on the device when the column fits)
   4. hydrate the selected columns with take_rows, append _distance
 
-Multivector, full-text and hybrid queries, plain scans, postfilters,
-offsets, distance ranges, metric overrides, plan explanation, rerankers
-and scalar-index prefilter pushdown wait for later slices (ROADMAP A4,
-A9, A12).
+Full-text search runs the BM25 index on the host (index/fts.py). A hybrid
+search runs its full-text legs on host threads while the calling thread
+runs the vector legs (every CUDA call stays on it), then fuses each pair
+with a reranker (RRF by default).
+
+Multivector queries, plain scans, postfilters, offsets, distance ranges,
+metric overrides, plan explanation and text queries that need an
+embedding function wait for later slices (ROADMAP A4, A9, A12).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import pyarrow as pa
@@ -27,6 +33,7 @@ from .arrow import fsl_to_numpy, refuse_multivector, vector_column_name
 from .errors import InvalidInputError
 from .filters.sql import parse_sql_expr
 from .index.vector import SearchParams, brute_force_search
+from .rerankers.base import RELEVANCE_COL, SCORE_COL
 from .storage.dataset import ROW_ID_COL
 
 DEFAULT_TOP_K = 10  # reference query.rs:36
@@ -52,6 +59,7 @@ class VectorQueryRequest:
     ef: int | None = None  # HNSW search width
     precision: str = "default"  # FLAT scans and the brute force of delta rows
     select: list[str] | None = None
+    with_row_id: bool = False
 
 
 def execute_vector_query(table, req: VectorQueryRequest) -> pa.Table:
@@ -131,8 +139,14 @@ def execute_vector_query(table, req: VectorQueryRequest) -> pa.Table:
 
 
 def compute_allowed_rowids(table, predicate: str) -> np.ndarray:
-    """Predicate → sorted allowed row addresses by a full Arrow-compute
-    scan. The scalar-index fast path waits for a later slice (ROADMAP A12)."""
+    """Predicate → sorted allowed row addresses: scalar-index fast path
+    (BTree/Bitmap/LabelList/FM lookups, reference scalar-index prefilter
+    pushdown) with a full Arrow-compute scan when no index serves it."""
+    from .index.scalar import try_scalar_prefilter
+
+    fast = try_scalar_prefilter(table, parse_sql_expr(predicate))
+    if fast is not None:
+        return np.sort(np.asarray(fast, dtype=np.uint64))
     t = table._dataset.to_table(columns=[], predicate=predicate, with_row_id=True)
     return np.sort(t.column(ROW_ID_COL).to_numpy().astype(np.uint64))
 
@@ -201,6 +215,8 @@ def _hydrate_results(table, req, dists, rowids, multi) -> pa.Table:
         rid = rowids[qi][valid]
         data = ds.take_rows(rid, columns=req.select)
         data = data.append_column(DIST_COL, pa.array(dists[qi][valid].astype(np.float32)))
+        if req.with_row_id:
+            data = data.append_column(ROW_ID_COL, pa.array(rid, type=pa.uint64()))
         if multi:
             data = data.append_column(
                 QUERY_INDEX_COL, pa.array(np.full(len(rid), qi, dtype=np.int32))
@@ -212,6 +228,8 @@ def _hydrate_results(table, req, dists, rowids, multi) -> pa.Table:
 def _empty_result(table, req, multi) -> pa.Table:
     fields = [f for f in table._dataset.schema if req.select is None or f.name in req.select]
     fields.append(pa.field(DIST_COL, pa.float32()))
+    if req.with_row_id:
+        fields.append(pa.field(ROW_ID_COL, pa.uint64()))
     if multi:
         fields.append(pa.field(QUERY_INDEX_COL, pa.int32()))
     return pa.schema(fields).empty_table()
@@ -228,38 +246,37 @@ def _coerce_query_vectors(query) -> list[np.ndarray]:
     return [np.asarray(query, dtype=np.float32)]
 
 
-class LanceVectorQueryBuilder(NotPortedSurface):
-    """Vector (ANN/KNN) search builder (reference query.py:1559)."""
+class LanceQueryBuilder(NotPortedSurface):
+    """Fluent builder base (reference query.py LanceQueryBuilder): the
+    setters every search kind shares, and the dispatch on query type."""
 
-    _NOT_PORTED = {
-        **dict.fromkeys(
-            ("offset", "with_row_id", "with_row_address", "postfilter", "filter", "metric",
-             "distance_type", "distance_range", "bypass_vector_index", "fast_search",
-             "vector", "column", "order_by", "fragment_ids", "with_fragments",
-             "to_batches", "to_pandas", "to_polars", "to_df", "to_table", "to_pyarrow",
-             "to_json", "to_reader", "to_pydantic", "output_schema", "to_query_object",
-             "explain_plan", "analyze_plan"),
-            "A4",
-        ),
-        "rerank": "A12",
-        "use_lsm": "A12",
-    }
+    _NOT_PORTED = dict.fromkeys(
+        ("offset", "with_row_address", "postfilter", "filter", "order_by", "fragment_ids",
+         "with_fragments", "to_batches", "to_pandas", "to_polars", "to_df", "to_table",
+         "to_pyarrow", "to_json", "to_reader", "to_pydantic", "output_schema",
+         "to_query_object", "explain_plan", "analyze_plan"),
+        "A4",
+    )
 
-    def __init__(self, table, query, vector_column_name: str | None = None):
+    def __init__(self, table):
         self._table = table
-        self._req = VectorQueryRequest(
-            column=vector_column_name, query_vectors=_coerce_query_vectors(query)
-        )
+        self._req = VectorQueryRequest()
 
-    def where(self, predicate: str) -> "LanceVectorQueryBuilder":
-        """SQL prefilter; multiple calls AND-compose."""
+    def where(self, predicate) -> "LanceQueryBuilder":
+        """SQL prefilter, or a substrait ExtendedExpression blob
+        (reference QueryFilter, query.rs:792-812); multiple calls
+        AND-compose."""
+        from .filters.substrait import is_substrait_filter, substrait_to_sql
+
+        if is_substrait_filter(predicate):
+            predicate = substrait_to_sql(predicate)
         parse_sql_expr(predicate)  # validate eagerly
         if self._req.filter is not None:
             predicate = f"({self._req.filter}) AND ({predicate})"
         self._req.filter = predicate
         return self
 
-    def select(self, columns: list[str]) -> "LanceVectorQueryBuilder":
+    def select(self, columns: list[str]) -> "LanceQueryBuilder":
         if isinstance(columns, dict):
             raise NotImplementedError(
                 "SQL projections in select() are not ported to lancedb_tpu_torch yet (ROADMAP A4)"
@@ -267,11 +284,66 @@ class LanceVectorQueryBuilder(NotPortedSurface):
         self._req.select = list(columns)
         return self
 
-    def limit(self, k: int) -> "LanceVectorQueryBuilder":
+    def limit(self, k: int) -> "LanceQueryBuilder":
         if k is None or k <= 0:
             raise ValueError("Limit is required for ANN/KNN queries")
         self._req.k = int(k)
         return self
+
+    def with_row_id(self, flag: bool = True) -> "LanceQueryBuilder":
+        """Add the ``_rowid`` column (the row address) to the results."""
+        self._req.with_row_id = flag
+        return self
+
+    def to_list(self) -> list[dict]:
+        return self.to_arrow().to_pylist()
+
+    @staticmethod
+    def create(table, query, query_type: str = "auto", vector_column_name: str | None = None,
+               fts_columns: list[str] | None = None) -> "LanceQueryBuilder":
+        """Dispatch on the query's type (reference query.py:782-825): a
+        (vector, text) pair or query_type "hybrid" → hybrid; a string or
+        an FTS query node → full text; anything else → vector."""
+        from .query_fts import FtsQueryNode
+
+        if query is None:
+            raise NotImplementedError(
+                "plain scans (search(None)) are not ported to lancedb_tpu_torch yet (ROADMAP A4)"
+            )
+        if query_type == "hybrid" or (
+            query_type == "auto" and isinstance(query, tuple) and len(query) == 2
+        ):
+            vec, text = query if isinstance(query, tuple) else (None, query)
+            return LanceHybridQueryBuilder(table, text, vec, vector_column_name, fts_columns)
+        if isinstance(query, str):
+            if query_type in ("auto", "fts"):
+                # the reference embeds a string through the table's embedding
+                # function when the table has one and no FTS index; the port
+                # has no embedding functions, so a string is full text
+                return LanceFtsQueryBuilder(table, query, fts_columns)
+            if query_type == "vector":
+                return LanceVectorQueryBuilder(table, table._embed_query(query), vector_column_name)
+            raise InvalidInputError(f"unknown query_type {query_type!r}")
+        if isinstance(query, FtsQueryNode):
+            return LanceFtsQueryBuilder(table, query, fts_columns)
+        return LanceVectorQueryBuilder(table, query, vector_column_name)
+
+
+class LanceVectorQueryBuilder(LanceQueryBuilder):
+    """Vector (ANN/KNN) search builder (reference query.py:1559)."""
+
+    _NOT_PORTED = {
+        **LanceQueryBuilder._NOT_PORTED,
+        **dict.fromkeys(("metric", "distance_type", "distance_range", "bypass_vector_index",
+                         "fast_search", "vector", "column"), "A4"),
+        "use_lsm": "A12",
+    }
+
+    def __init__(self, table, query, vector_column_name: str | None = None):
+        super().__init__(table)
+        self._req.column = vector_column_name
+        self._req.query_vectors = _coerce_query_vectors(query)
+        self._reranker = None
 
     def nprobes(self, n: int) -> "LanceVectorQueryBuilder":
         self._req.minimum_nprobes = int(n)
@@ -300,8 +372,214 @@ class LanceVectorQueryBuilder(NotPortedSurface):
         self._req.precision = p
         return self
 
-    def to_arrow(self) -> pa.Table:
-        return execute_vector_query(self._table, self._req)
+    def rerank(self, reranker) -> "LanceVectorQueryBuilder":
+        """Rerank the results with ``reranker.rerank_vector`` (reference
+        query.py:924)."""
+        self._reranker = reranker
+        return self
 
-    def to_list(self) -> list[dict]:
-        return self.to_arrow().to_pylist()
+    def to_arrow(self) -> pa.Table:
+        if self._reranker is None:
+            return execute_vector_query(self._table, self._req)
+        out = execute_vector_query(self._table, replace(self._req, with_row_id=True))
+        out = self._reranker.rerank_vector("", out).slice(0, self._req.k)
+        if not self._req.with_row_id and ROW_ID_COL in out.column_names:
+            out = out.drop_columns([ROW_ID_COL])
+        return out
+
+
+class LanceFtsQueryBuilder(LanceQueryBuilder):
+    """Full-text (BM25) search builder (reference query.py:1079-1143)."""
+
+    def __init__(self, table, query, fts_columns: list[str] | None = None):
+        super().__init__(table)
+        self._query = query
+        self._fts_columns = fts_columns
+        self._reranker = None
+
+    def rerank(self, reranker) -> "LanceFtsQueryBuilder":
+        self._reranker = reranker
+        return self
+
+    def text(self, query) -> "LanceFtsQueryBuilder":
+        """Replace the FTS query."""
+        self._query = query
+        return self
+
+    def get_query(self):
+        """The query text or FTS AST node."""
+        return self._query
+
+    def phrase_query(self, flag: bool = True) -> "LanceFtsQueryBuilder":
+        """Treat the query text as an exact phrase."""
+        if flag and isinstance(self._query, str):
+            from .query_fts import PhraseQuery
+
+            self._query = PhraseQuery(self._query, column=None)
+        return self
+
+    def to_arrow(self) -> pa.Table:
+        out = self._table._execute_fts(
+            self._query,
+            columns=self._fts_columns,
+            k=self._req.k,
+            filter=self._req.filter,
+            select=self._req.select,
+            with_row_id=self._req.with_row_id or self._reranker is not None,
+        )
+        if self._reranker is not None:
+            out = self._reranker.rerank_fts(str(self._query), out).slice(0, self._req.k)
+            if not self._req.with_row_id and ROW_ID_COL in out.column_names:
+                out = out.drop_columns([ROW_ID_COL])
+        return out
+
+
+class LanceHybridQueryBuilder(LanceQueryBuilder):
+    """Hybrid = full text ∥ vector, fused by a reranker (reference
+    query.py:1144-1366; rust execute_hybrid, query.rs:1372-1445)."""
+
+    _NOT_PORTED = {
+        **LanceQueryBuilder._NOT_PORTED,
+        **dict.fromkeys(("distance_range", "metric", "distance_type"), "A4"),
+    }
+
+    def __init__(self, table, text_query, vector_query=None, vector_column_name=None,
+                 fts_columns=None):
+        super().__init__(table)
+        self._text_query = text_query
+        self._vector = (
+            np.asarray(vector_query, dtype=np.float32) if vector_query is not None else None
+        )
+        self._vector_column = vector_column_name
+        self._fts_columns = fts_columns
+        self._reranker = None
+        self._vq_opts: dict = {}
+        # (vector, text) pairs beyond the first: every vector leg runs in
+        # one searcher call (the reference's multi-query-vector union,
+        # table/query.rs:334)
+        self._extra_queries: list[tuple] = []
+
+    def add_query(self, vector=None, text=None) -> "LanceHybridQueryBuilder":
+        """Add another (vector, text) hybrid query to this builder. The
+        vector legs of all pairs run as one batched searcher call and the
+        FTS legs concurrently on host threads; the results carry a
+        ``query_index`` column."""
+        if vector is None and text is None:
+            raise InvalidInputError("add_query needs a vector and/or text")
+        self._extra_queries.append((vector, text if text is not None else self._text_query))
+        return self
+
+    def rerank(self, reranker=None, normalize: str = "score") -> "LanceHybridQueryBuilder":
+        """Fuse the legs with ``reranker`` (RRF when None). ``normalize`` is
+        the reference's signature; the reference ignores it too."""
+        self._reranker = reranker
+        return self
+
+    def nprobes(self, n: int) -> "LanceHybridQueryBuilder":
+        self._vq_opts["nprobes"] = n
+        return self
+
+    def minimum_nprobes(self, n: int) -> "LanceHybridQueryBuilder":
+        self._vq_opts["minimum_nprobes"] = n
+        return self
+
+    def maximum_nprobes(self, n: int) -> "LanceHybridQueryBuilder":
+        self._vq_opts["maximum_nprobes"] = n
+        return self
+
+    def ef(self, ef: int) -> "LanceHybridQueryBuilder":
+        self._vq_opts["ef"] = ef
+        return self
+
+    def refine_factor(self, rf: int) -> "LanceHybridQueryBuilder":
+        self._vq_opts["refine_factor"] = rf
+        return self
+
+    def text(self, query) -> "LanceHybridQueryBuilder":
+        """Replace the FTS leg's query."""
+        self._text_query = query
+        return self
+
+    def vector(self, vector) -> "LanceHybridQueryBuilder":
+        """Replace the vector leg's query vector."""
+        self._vector = np.asarray(vector, dtype=np.float32)
+        return self
+
+    def _vector_leg(self, query_vectors) -> LanceVectorQueryBuilder:
+        vq = LanceVectorQueryBuilder(self._table, query_vectors, self._vector_column)
+        vq._req.filter = self._req.filter
+        vq._req.k = self._req.k
+        vq._req.with_row_id = True
+        for opt in ("nprobes", "minimum_nprobes", "maximum_nprobes", "ef", "refine_factor"):
+            if opt in self._vq_opts:  # in the reference's order
+                getattr(vq, opt)(self._vq_opts[opt])
+        return vq
+
+    def _fts_leg(self, text_query) -> pa.Table:
+        """Host only: the BM25 scorers, the prefilter and take_rows (no torch)."""
+        fts = LanceFtsQueryBuilder(self._table, text_query, self._fts_columns)
+        fts._req.filter = self._req.filter
+        fts._req.k = self._req.k
+        fts._req.with_row_id = True
+        return fts.to_arrow()
+
+    def _keep_selected(self, out: pa.Table, extra=()) -> pa.Table:
+        if not self._req.with_row_id and ROW_ID_COL in out.column_names:
+            out = out.drop_columns([ROW_ID_COL])
+        if self._req.select is not None:
+            keep = set(self._req.select) | {DIST_COL, SCORE_COL, RELEVANCE_COL, ROW_ID_COL,
+                                            *extra}
+            out = out.select([c for c in out.column_names if c in keep])
+        return out
+
+    def _to_arrow_batched(self) -> pa.Table:
+        """Every (vector, text) pair at once: the vector legs stack into
+        one searcher call on this thread (one B1 launch per 128 queries on
+        an IVF_PQ index), the FTS legs fan out on host threads (the native
+        scorers release the GIL). Results carry ``query_index``."""
+        from .rerankers.rrf import RRFReranker
+
+        pairs = [(self._vector, self._text_query)] + list(self._extra_queries)
+        vectors, texts = [], []
+        for vec, txt in pairs:
+            if vec is None:
+                vec = self._table._embed_query(txt)
+            vectors.append(np.asarray(vec, dtype=np.float32).reshape(-1))
+            texts.append(txt)
+        k = self._req.k
+        vq = self._vector_leg(np.stack(vectors))
+        with ThreadPoolExecutor(max_workers=min(8, len(texts)),
+                                thread_name_prefix="hybrid-fts") as ex:
+            fts_futures = [ex.submit(self._fts_leg, t) for t in texts]
+            vector_all = vq.to_arrow()
+            fts_results = [f.result() for f in fts_futures]
+
+        reranker = self._reranker or RRFReranker()
+        qidx = vector_all.column(QUERY_INDEX_COL).to_numpy(zero_copy_only=False)
+        parts = []
+        for qi, (txt, fts_res) in enumerate(zip(texts, fts_results)):
+            vres = vector_all.filter(pa.array(qidx == qi)).drop_columns([QUERY_INDEX_COL])
+            fused = reranker.rerank_hybrid(str(txt), vres, fts_res).slice(0, k)
+            fused = fused.append_column(
+                QUERY_INDEX_COL, pa.array(np.full(len(fused), qi, dtype=np.int32))
+            )
+            parts.append(fused)
+        out = pa.concat_tables(parts, promote_options="permissive")
+        return self._keep_selected(out, (QUERY_INDEX_COL,))
+
+    def to_arrow(self) -> pa.Table:
+        from .rerankers.rrf import RRFReranker
+
+        if self._extra_queries:
+            return self._to_arrow_batched()
+        if self._vector is None:
+            self._vector = self._table._embed_query(self._text_query)
+        vq = self._vector_leg(self._vector)
+        # the FTS leg (host) overlaps the vector leg's device work
+        with ThreadPoolExecutor(max_workers=1, thread_name_prefix="hybrid-fts") as ex:
+            fts_future = ex.submit(self._fts_leg, self._text_query)
+            vector_results = vq.to_arrow()
+            fts_results = fts_future.result()
+        reranker = self._reranker or RRFReranker()
+        fused = reranker.rerank_hybrid(str(self._text_query), vector_results, fts_results)
+        return self._keep_selected(fused.slice(0, self._req.k))

@@ -23,11 +23,18 @@ from lancedb_tpu_torch.index import HnswFlat, IvfFlat, IvfPq
 from lancedb_tpu_torch.ops import ivf_pq_adc_grouped_scan
 from lancedb_tpu_torch.ops.probe_kernels import adc_sum, smem_gather
 from lancedb_tpu_torch.probes import ab_adc8, ab_gather_min, common, probe_adc_grouped, probe_pq_real
+from lancedb_tpu_torch import native, query_fts
+from lancedb_tpu_torch.filters import substrait
+from lancedb_tpu_torch.index import fts, scalar, tokenizer
+from lancedb_tpu_torch.rerankers import LinearCombinationReranker, MRRReranker, RRFReranker
 
 rng = np.random.default_rng(0)
 x = rng.standard_normal((600, 16)).astype(np.float32)
+words = np.array(["alpha", "beta", "gamma", "delta", "epsilon"])
 tbl = lancedb_tpu_torch.connect(sys.argv[1], device="cpu").create_table("t", pa.table({
-    "id": np.arange(600), "vector": pa.FixedSizeListArray.from_arrays(pa.array(x.ravel()), 16),
+    "id": np.arange(600), "category": np.arange(600) % 10,
+    "text": [" ".join(words[rng.integers(0, 5, 4)]) for _ in range(600)],
+    "vector": pa.FixedSizeListArray.from_arrays(pa.array(x.ravel()), 16),
 }))
 tbl.create_index(config=IvfPq(num_partitions=4, num_sub_vectors=4, num_bits=4, max_iterations=5))
 out = tbl.search(x[7] + 0.01).nprobes(4).refine_factor(10).limit(3).to_arrow()
@@ -35,6 +42,13 @@ assert out["id"][0].as_py() == 7, out
 tbl.create_index(config=IvfFlat(num_partitions=4, max_iterations=5))
 out = tbl.search(x[9] + 0.01).nprobes(2).limit(3).to_arrow()
 assert out["id"][0].as_py() == 9, out
+tbl.create_fts_index("text")
+tbl.create_scalar_index("category", index_type="BITMAP")
+assert native.native_available()
+assert tbl.search("gamma", query_type="fts").limit(3).to_arrow().num_rows == 3
+for rr in (RRFReranker(), LinearCombinationReranker(), MRRReranker()):
+    out = tbl.search((x[9] + 0.01, "gamma delta")).nprobes(2).where("category = 9").limit(3)
+    assert out.rerank(rr).to_arrow()["id"][0].as_py() == 9, out
 tbl.create_index(config=HnswFlat(m=8))
 out = tbl.search(x[5] + 0.01).ef(32).limit(3).to_arrow()
 assert out["id"][0].as_py() == 5, out
@@ -93,7 +107,7 @@ def test_unported_surface_names_its_roadmap_item(tmp_path):
     assert db.table_names() == ["t"] and db.open_table("t").count_rows() == 4
     for call, item in (
         (lambda: tbl.update(where="id = 1", values={"id": 2}), "A4"),
-        (lambda: tbl.create_fts_index("id"), "A12"),
+        (lambda: tbl.search("some text", query_type="vector"), "A12"),
         (lambda: tbl.search(x[0]).offset(1), "A4"),
         (lambda: db.drop_table("t"), "A4"),
         (lambda: tbl.create_index(index_type="IVF_RQ"), "A7"),
