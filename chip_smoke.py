@@ -4,7 +4,8 @@
     python3 chip_smoke.py                 # every phase (needs one CUDA card)
     python3 chip_smoke.py --phase kernels # build and check the kernels only
     python3 chip_smoke.py --phase hnsw    # path e alone (or --phase large_d: path d;
-                                          # --phase fts: path f)
+                                          # --phase fts: path f; --phase
+                                          # vector_family: path g)
     python3 chip_smoke.py --out smoke.json # also write the full summary as JSON
 
 Phases:
@@ -57,6 +58,22 @@ Phases:
      c. create_index(FLAT) → search in precision float32, bfloat16 and
         the default two-pass; then one OPQ build (8-bit x16), raw and
         refined.
+     g. the vector family (--phase vector_family alone), on the same
+        table: create_index(IVF_SQ) and (IVF_RQ), 1024 partitions, each
+        searched raw, refined (fused) and filtered at nprobes 20 with
+        build seconds and peak memory, the searcher's batch ms, the peak
+        of its transients and its profile, and the probed codes' bytes
+        as the scan's bound; recall bars from tests/sqrq_reference_bars.py.
+        Then an IVF_PQ 4-bit x32 index (B1 counted from 0) and the query
+        options, each held to a re-derivation: distance_range,
+        offset(5), postfilter(), bypass_vector_index() and metric("dot")
+        (the card's exact f32 top-10), fast_search() after adding 10,000
+        rows. Then metric("hamming") over 1,000,000 packed 1024-bit rows
+        (distances equal to a table popcount on the card, ties lower row
+        first), and multivector MaxSim over 50,000 passages of 32-180
+        128-d tokens with its token index, 32 queries of 32 tokens with
+        and without a filter, held to the two-stage algorithm in f32 on
+        the card (recall@10 >= 0.99) and to an exhaustive MaxSim.
      e. HNSW (bench.py:1158 run_hnsw_config): IVF_HNSW_FLAT (m 20) on the
         table's first 500,000 rows, the bench's 256 queries: the device
         beam at ef 64 and 128 (profiled, its runs on the card counted
@@ -1208,6 +1225,9 @@ def main_path(card: str) -> tuple[dict, list[dict]]:
         check_bars({**results["ivf_flat"], **results["flat"]})
         results["opq"] = opq_path(tbl, queries, gt,
                                   results["ivf_pq_8bit_x16"]["raw"]["recall@10"], card)
+        results["vector_family"], vf_krec = vector_family_path(db, tbl, x, queries, gt, gt_f,
+                                                               card)
+        kernels.append(vf_krec)
         del tbl, data
         results["hnsw"] = hnsw_path(db, x, card)
     return results, kernels
@@ -1675,11 +1695,415 @@ def fts_phase(card: str) -> tuple[dict, list[dict]]:
     return results, [krec]
 
 
+# ---------------------------------------------------------------- path g
+
+# tests/sqrq_reference_bars.py: the reference's recall@10 on the CPU at path
+# g's settings (1M x 128, 1024 partitions, nprobes 20), less 0.03; refined
+# at least 0.95 as well
+SQRQ_BARS = {"ivf_sq": {"raw": 0.981640625 - 0.03, "refined": 0.996875 - 0.03,
+                        "filtered": 0.976953125 - 0.03},
+             "ivf_rq": {"raw": 0.8171875 - 0.03, "refined": 0.996875 - 0.03,
+                        "filtered": 0.822265625 - 0.03}}
+VF_PARTITIONS = 1024  # path a's partitions, for every index of path g
+OPTION_DELTA_ROWS = 10_000
+# Cohere embed-v3's ubinary output: 1024 bits, 128 uint8 per row
+HAMMING_ROWS, HAMMING_BYTES, HAMMING_FLIP = 1_000_000, 128, 0.05
+# ColBERTv2: doc_maxlen 180, query_maxlen 32, dim 128
+MV_PASSAGES, MV_TOPICS, MV_DIM, MV_QUERIES, MV_QUERY_TOKENS = 50_000, 1_000, 128, 32, 32
+MV_TOKENS = (32, 180)
+
+
+def same_topk(label: str, got_ids, got_d, want_ids, want_d, atol: float) -> None:
+    """Raise unless two (k,) top lists agree: distances within atol, and the
+    same ids apart from a swap among distances tied within atol (or at the
+    cut, where a tie partner fell off)."""
+    got_ids, want_ids = np.asarray(got_ids), np.asarray(want_ids)
+    got_d, want_d = np.asarray(got_d, np.float64), np.asarray(want_d, np.float64)
+    if got_ids.shape != want_ids.shape or not np.allclose(got_d, want_d, rtol=0, atol=atol):
+        raise AssertionError(f"{label}: {got_ids} {got_d} != {want_ids} {want_d}")
+    for j in np.nonzero(got_ids != want_ids)[0]:
+        if j != len(want_ids) - 1 and (np.abs(want_d - want_d[j]) <= atol).sum() < 2:
+            raise AssertionError(f"{label}: id {got_ids[j]} != {want_ids[j]} at {j}")
+
+
+def per_query(out, nq: int, col: str = "id") -> list[np.ndarray]:
+    """A batch's result column split by query_index."""
+    qi = np.asarray(out.column("query_index"))
+    vals = np.asarray(out.column(col))
+    return [vals[qi == i] for i in range(nq)]
+
+
+def sqrq_index(tbl, queries, gt, gt_f, kind: str, card: str) -> dict:
+    """create_index(IVF_SQ or IVF_RQ, 1024 partitions) on path a's table:
+    build seconds and peak memory; raw, refined (fused) and filtered
+    searches of the 256 queries at nprobes 20 with their recall; the
+    searcher's ms for the batch, the peak of its transients (the gathered
+    chunk) and its profile; the bound of the probed codes' bytes."""
+    import torch
+
+    from lancedb_tpu_torch.index import IvfRq, IvfSq
+    from lancedb_tpu_torch.index.vector import SearchParams, _select_probes
+
+    tag = kind.lower()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tbl.create_index(config=(IvfSq if kind == "IVF_SQ" else IvfRq)(num_partitions=VF_PARTITIONS))
+    torch.cuda.synchronize()
+    rec: dict = {"build_s": time.perf_counter() - t0,
+                 "build_peak_mem_bytes": int(torch.cuda.max_memory_allocated())}
+    rec.update(timed_searches(tbl, queries, 10, (
+        ("raw", {"nprobes": 20}, gt), ("refined", {"nprobes": 20, "refine_factor": 10}, gt),
+        ("filtered", {"nprobes": 20, "where": "category < 5"}, gt_f),
+    )))
+    searcher = tbl._get_searcher(tbl._dataset.manifest.indices[0])
+    raw = SearchParams(k=10, nprobes=20)
+    ms = host_ms(lambda: searcher.search(queries, raw))
+    rec["searcher_raw_ms"], rec["searcher_raw_qps"] = ms, len(queries) / (ms / 1e3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    searcher.search(queries, raw)
+    torch.cuda.synchronize()
+    rec["search_transient_peak_bytes"] = int(torch.cuda.max_memory_allocated() - base)
+    rec["profiled_searcher_raw"] = profile_search(searcher, queries, raw)
+    # the least time of the scan: each 128-query chunk reads its distinct
+    # probed blocks' codes (SQ: D bytes a row, RQ: D/8) once
+    width = searcher.dim if kind == "IVF_SQ" else searcher.dim // 8
+    nbytes = 0
+    for i in range(0, len(queries), 128):
+        pids, _ = _select_probes(torch.from_numpy(queries[i : i + 128]).cuda(),
+                                 searcher._device["centroids"], searcher._block_nprobes(20), "l2")
+        nbytes += int(torch.unique(pids).numel()) * searcher.pmax * width
+    rec["probed_code_bytes"] = nbytes
+    rec["scan_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[vector_family] {tag} ({card}): {json.dumps(rec)}", flush=True)
+    for case, bar in SQRQ_BARS[tag].items():
+        bar = max(bar, 0.95) if case == "refined" else bar
+        if rec[case]["recall@10"] < bar:
+            raise AssertionError(f"{tag} {case}: recall@10 {rec[case]['recall@10']} < {bar}")
+    del searcher
+    tbl._invalidate_caches()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def exact_topk(x_d, q: np.ndarray, k: int, metric: str):
+    """Exact f32 top-k (ids, distances) on the card: l2 as |q|² − 2q·x +
+    |x|² (clamped at 0), dot as −q·x."""
+    import torch
+
+    qd = torch.from_numpy(q).cuda()
+    dots = qd @ x_d.T
+    if metric == "dot":
+        d = -dots
+    else:
+        d = torch.clamp(torch.sum(qd * qd, 1)[:, None] - 2.0 * dots
+                        + torch.sum(x_d * x_d, 1)[None, :], min=0.0)
+    vals, idx = torch.topk(d, k, dim=1, largest=False)
+    return idx.cpu().numpy(), vals.cpu().numpy()
+
+
+def options_path(tbl, x: np.ndarray, queries, card: str) -> tuple[dict, dict]:
+    """The vector query options on an IVF_PQ 4-bit x32 index of path a's
+    table (B1 on the path), each held to a re-derivation on the same
+    candidates: distance_range keeps exactly the rows in [lo, hi),
+    offset(5) is rows 5..14 of a limit-15 search, postfilter the raw top-10
+    filtered, the metric("dot") override and bypass_vector_index the exact
+    f32 top-10 of the card, fast_search after an add of 10,000 rows the
+    index's results and the full search the delta's. B1's launches are
+    counted from 0 over the path. Returns (summary, B1's record)."""
+    import pyarrow as pa
+    import torch
+
+    from lancedb_tpu_torch.index import IvfPq
+    from lancedb_tpu_torch.ops import adc
+
+    nq, n, k = len(queries), len(x), 10
+    t0 = time.perf_counter()
+    tbl.create_index(config=IvfPq(num_partitions=VF_PARTITIONS, num_sub_vectors=32, num_bits=4))
+    torch.cuda.synchronize()
+    rec: dict = {"ivf_pq_build_s": time.perf_counter() - t0}
+    adc.reset_launch_counts()
+
+    def search(**opts):
+        s = tbl.search(queries).nprobes(20).select(["id", "category"])
+        for method, arg in opts.items():
+            s = getattr(s, method)(*arg) if isinstance(arg, tuple) else getattr(s, method)(arg)
+        out, secs = timed(s.to_arrow)
+        return out, secs * 1e3
+
+    search(limit=k)  # loads the searcher
+    raw, rec["raw_ms"] = search(limit=k)
+    raw_ids, raw_d = per_query(raw, nq), per_query(raw, nq, "_distance")
+    raw_cat = per_query(raw, nq, "category")
+    # distance_range: the upper bound midway between query 0's 5th and 6th
+    d0 = np.unique(raw_d[0])
+    j = 4 + int(np.argmax(np.diff(d0[4:])))
+    lo, hi = float(d0[0] + d0[1]) / 2, float(d0[j] + d0[j + 1]) / 2
+    ranged, rec["distance_range_ms"] = search(limit=k, distance_range=(lo, hi))
+    for i, (ids, d) in enumerate(zip(per_query(ranged, nq), per_query(ranged, nq, "_distance"))):
+        keep = (raw_d[i] >= lo) & (raw_d[i] < hi)
+        if not (np.array_equal(ids, raw_ids[i][keep]) and np.array_equal(d, raw_d[i][keep])):
+            raise AssertionError(f"distance_range [{lo}, {hi}) query {i}: {ids} != "
+                                 f"{raw_ids[i][keep]}")
+    rec["distance_range_rows"] = ranged.num_rows
+    long, _ = search(limit=15)
+    off, rec["offset_ms"] = search(limit=k, offset=5)
+    for i, (a, b) in enumerate(zip(per_query(off, nq), per_query(long, nq))):
+        if not np.array_equal(a, b[5:15]):
+            raise AssertionError(f"offset(5) query {i}: {a} != rows 5..14 {b[5:15]}")
+    post, rec["postfilter_ms"] = search(limit=k, where="category < 5", postfilter=())
+    for i, ids in enumerate(per_query(post, nq)):
+        if not np.array_equal(ids, raw_ids[i][raw_cat[i] < 5]):
+            raise AssertionError(f"postfilter query {i}: {ids} != {raw_ids[i][raw_cat[i] < 5]}")
+    rec["postfilter_rows"] = post.num_rows
+    x_d = torch.from_numpy(x).cuda()
+    for name, opts, metric in (("bypass_vector_index", {"bypass_vector_index": ()}, "l2"),
+                               ("metric_dot", {"metric": "dot"}, "dot")):
+        out, rec[f"{name}_ms"] = search(limit=k, **opts)
+        want_ids, want_d = exact_topk(x_d, queries, k, metric)
+        qn2 = (queries.astype(np.float64) ** 2).sum(1)
+        for i, (ids, d) in enumerate(zip(per_query(out, nq), per_query(out, nq, "_distance"))):
+            same_topk(f"{name} query {i}", ids, d, want_ids[i], want_d[i], 1e-5 * (qn2[i] + 1))
+    del x_d
+    torch.cuda.empty_cache()
+    # fast_search: 10,000 rows near the queries added after the build
+    rng = np.random.default_rng(5)
+    xd_new = (queries[np.arange(OPTION_DELTA_ROWS) % nq]
+              + 0.01 * rng.standard_normal((OPTION_DELTA_ROWS, x.shape[1]))).astype(np.float32)
+    new_ids = np.arange(n, n + OPTION_DELTA_ROWS, dtype=np.int64)
+    tbl.add(pa.table({"id": new_ids, "category": new_ids % 10,
+                      "vector": pa.FixedSizeListArray.from_arrays(pa.array(xd_new.ravel()),
+                                                                  x.shape[1])}))
+    search(limit=k, fast_search=())  # reloads the searcher
+    fast, rec["fast_search_ms"] = search(limit=k, fast_search=())
+    full, rec["with_delta_ms"] = search(limit=k)
+    delta_ids, delta_d = exact_topk(torch.from_numpy(xd_new).cuda(), queries, k, "l2")
+    for i in range(nq):
+        if not np.array_equal(per_query(fast, nq)[i], raw_ids[i]):
+            raise AssertionError(f"fast_search query {i}: not the index's results")
+        # without fast_search: the index's hits merged with the delta's exact top-k
+        cand_ids = np.concatenate([raw_ids[i], delta_ids[i] + n])
+        cand_d = np.concatenate([raw_d[i], delta_d[i]])
+        top = np.argsort(cand_d, kind="stable")[:k]
+        same_topk(f"delta query {i}", per_query(full, nq)[i], per_query(full, nq, "_distance")[i],
+                  cand_ids[top], cand_d[top], 1e-4)
+    rec["delta_hits"] = int(np.sum(np.asarray(full.column("id")) >= n))
+    torch.cuda.synchronize()
+    rec["b1_launches"] = adc.launch_counts["ivf_pq_adc_scan"]
+    print(f"[vector_family] options ({card}): {json.dumps(rec)}", flush=True)
+    if rec["b1_launches"] <= 0:
+        raise AssertionError("the query options did not launch B1")
+    searcher = next(tbl._get_searcher(ix) for ix in tbl._dataset.manifest.indices
+                    if ix.index_type == "IVF_PQ")
+    krec = check_adc(searcher_adc_args(searcher, queries), "vector options (IVF_PQ 4-bit x32)")
+    krec["launches"] = rec["b1_launches"]
+    return rec, krec
+
+
+def hamming_path(db, card: str) -> dict:
+    """metric("hamming") brute force over 1,000,000 packed 1024-bit rows
+    (128 uint8) for 256 queries, each a row with 5 % of its bits flipped:
+    every distance equals an XOR popcount the card computes with a
+    256-entry table, and the ids equal that popcount's stable top-10
+    (ties lower row first)."""
+    import pyarrow as pa
+    import torch
+
+    rng = np.random.default_rng(7)
+    rows = rng.integers(0, 256, (HAMMING_ROWS, HAMMING_BYTES), dtype=np.uint8)
+    flips = np.packbits(rng.random((256, HAMMING_BYTES * 8)) < HAMMING_FLIP, axis=1,
+                        bitorder="little")
+    qbits = rows[rng.integers(0, HAMMING_ROWS, 256)] ^ flips
+    t0 = time.perf_counter()
+    tbl = db.create_table("hamming_1m", pa.table({
+        "id": np.arange(HAMMING_ROWS, dtype=np.int64),
+        "bits": pa.FixedSizeListArray.from_arrays(pa.array(rows.ravel()), HAMMING_BYTES),
+    }))
+    rec: dict = {"rows": HAMMING_ROWS, "bits": HAMMING_BYTES * 8, "queries": 256,
+                 "table_s": time.perf_counter() - t0}
+
+    def run():
+        return tbl.search(qbits, vector_column_name="bits").metric("hamming").limit(10) \
+            .select(["id"]).to_arrow()
+
+    run()
+    out, secs = timed(run, reps=3)
+    rec["ms_per_batch"], rec["qps"] = secs * 1e3, 256 / secs
+    # the oracle: popcount(q ^ x) by a 256-entry table, then a stable sort
+    table = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.int32,
+                         device="cuda")
+    x_d, q_d = torch.from_numpy(rows).cuda(), torch.from_numpy(qbits).cuda()
+    dist = torch.empty((256, HAMMING_ROWS), dtype=torch.int32, device="cuda")
+    for s in range(0, HAMMING_ROWS, 2048):
+        xor = q_d[:, None, :] ^ x_d[None, s : s + 2048]
+        dist[:, s : s + 2048] = table[xor.long()].sum(-1, dtype=torch.int32)
+    want_d, want_ids = torch.sort(dist, dim=1, stable=True)
+    want_d, want_ids = want_d[:, :10].cpu().numpy(), want_ids[:, :10].cpu().numpy()
+    del dist, x_d
+    torch.cuda.empty_cache()
+    ties = 0
+    for i, (ids, d) in enumerate(zip(per_query(out, 256), per_query(out, 256, "_distance"))):
+        if not (np.array_equal(ids, want_ids[i]) and np.array_equal(d, want_d[i])):
+            raise AssertionError(f"hamming query {i}: {ids} {d} != {want_ids[i]} {want_d[i]}")
+        ties += int(np.sum(np.diff(d) == 0))
+    rec["tied_neighbours_checked"] = ties
+    print(f"[vector_family] hamming ({card}): {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def multivector_data(rng):
+    """50,000 passages of 32-180 128-d tokens, clustered by topic (each
+    passage near its topic's centre, each token near its passage's), and
+    32 queries of 32 tokens drawn near given passages."""
+    topics = rng.standard_normal((MV_TOPICS, MV_DIM), dtype=np.float32)
+    topic = rng.integers(0, MV_TOPICS, MV_PASSAGES)
+    centre = topics[topic] + 0.6 * rng.standard_normal((MV_PASSAGES, MV_DIM), dtype=np.float32)
+    counts = rng.integers(MV_TOKENS[0], MV_TOKENS[1] + 1, MV_PASSAGES)
+    owner = np.repeat(np.arange(MV_PASSAGES), counts)
+    tokens = centre[owner]
+    tokens += 0.8 * rng.standard_normal(tokens.shape, dtype=np.float32)
+    src = rng.integers(0, MV_PASSAGES, MV_QUERIES)
+    queries = centre[src][:, None, :] + 0.8 * rng.standard_normal(
+        (MV_QUERIES, MV_QUERY_TOKENS, MV_DIM), dtype=np.float32)
+    return tokens, counts, owner, topic, queries.astype(np.float32)
+
+
+def multivector_truth(tok_d, owner_d, q: np.ndarray, allowed_d, k: int = 10, overfetch: int = 10):
+    """On the card in f32: (the two-stage algorithm's top-k — each query
+    token's k·overfetch nearest allowed tokens, then exact MaxSim over
+    their parents — and the exhaustive MaxSim top-k over all allowed
+    passages)."""
+    import torch
+
+    qd = torch.from_numpy(q).cuda()
+    qd = qd / torch.clamp(qd.norm(dim=1, keepdim=True), min=1e-30)
+    sims = qd @ tok_d.T  # (nq_tok, T)
+    sims = torch.where(allowed_d[owner_d][None, :], sims, float("-inf"))
+    per_doc = torch.full((len(q), len(allowed_d)), float("-inf"), device="cuda")
+    per_doc = per_doc.scatter_reduce(1, owner_d[None, :].expand_as(sims), sims, "amax")
+    scores = torch.where(torch.isfinite(per_doc), per_doc, 0.0).sum(0)
+    scores = torch.where(allowed_d, scores, float("-inf"))
+    exhaustive = torch.topk(scores, k).indices.cpu().numpy()
+    cand = torch.unique(owner_d[torch.topk(sims, k * overfetch, dim=1).indices])
+    two_stage = cand[torch.topk(scores[cand], min(k, len(cand))).indices].cpu().numpy()
+    return two_stage, exhaustive
+
+
+def multivector_path(db, card: str) -> dict:
+    """ColBERT-style late interaction on the card: a multivector table of
+    50,000 passages (~5.3M tokens), its token index, then 32 queries one
+    call each, without and with where("id % 2 = 0"); each top-10 held to
+    the two-stage algorithm recomputed in f32 on the card (recall@10 at
+    least 0.99) and reported against an exhaustive MaxSim."""
+    import pyarrow as pa
+    import torch
+
+    t0 = time.perf_counter()
+    tokens, counts, owner, topic, queries = multivector_data(np.random.default_rng(11))
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    col = pa.ListArray.from_arrays(pa.array(offsets), pa.FixedSizeListArray.from_arrays(
+        pa.array(tokens.ravel()), MV_DIM))
+    tbl = db.create_table("colbert_50k", pa.table({
+        "id": np.arange(MV_PASSAGES, dtype=np.int64), "topic": topic, "tokens": col}))
+    rec: dict = {"passages": MV_PASSAGES, "tokens": int(len(tokens)),
+                 "token_bytes_f32": int(tokens.nbytes), "data_and_table_s": time.perf_counter() - t0}
+    del col
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tbl.create_index(vector_column_name="tokens")
+    rec["build_s"] = time.perf_counter() - t0
+    unit = tokens / np.maximum(np.linalg.norm(tokens, axis=1, keepdims=True), 1e-30)
+    tok_d = torch.from_numpy(unit).cuda()
+    del tokens, unit
+    owner_d = torch.from_numpy(owner).cuda()
+    ids = np.arange(MV_PASSAGES)
+    for name, where in (("unfiltered", None), ("filtered", "id % 2 = 0")):
+        allowed_d = torch.from_numpy(ids % 2 == 0 if where else np.ones(MV_PASSAGES, bool)).cuda()
+
+        def one(i):
+            s = tbl.search(queries[i], vector_column_name="tokens").limit(10).select(["id"])
+            return (s.where(where) if where else s).to_arrow()
+
+        one(0)  # loads the token index
+        outs, secs = timed(lambda: [one(i) for i in range(MV_QUERIES)])
+        r_two, r_all, hits = [], [], []
+        for i, out in enumerate(outs):
+            got = np.asarray(out.column("id"))
+            if where and not np.all(got % 2 == 0):
+                raise AssertionError(f"multivector {name} query {i}: a hit fails the filter")
+            two, full = multivector_truth(tok_d, owner_d, queries[i], allowed_d)
+            # stage 1 can find fewer than 10 parents; then so must the card
+            if len(got) != len(two):
+                raise AssertionError(f"multivector {name} query {i}: {len(got)} hits, the "
+                                     f"two-stage recomputation {len(two)}")
+            r_two.append(len(set(got) & set(two)) / len(two))
+            r_all.append(len(set(got) & set(full)) / 10)
+            hits.append(len(got))
+        rec[name] = {"ms_per_query": secs / MV_QUERIES * 1e3,
+                     "recall@10_vs_two_stage_f32": float(np.mean(r_two)),
+                     "recall@10_vs_exhaustive": float(np.mean(r_all)),
+                     "mean_hits": float(np.mean(hits))}
+    rec["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated())
+    print(f"[vector_family] multivector ({card}): {json.dumps(rec)}", flush=True)
+    del tok_d, owner_d
+    torch.cuda.empty_cache()
+    for name in ("unfiltered", "filtered"):
+        if rec[name]["recall@10_vs_two_stage_f32"] < 0.99:
+            raise AssertionError(f"multivector {name}: recall@10 against the f32 two-stage "
+                                 f"{rec[name]['recall@10_vs_two_stage_f32']} < 0.99")
+    return rec
+
+
+def vector_family_path(db, tbl, x, queries, gt, gt_f, card: str) -> tuple[dict, dict]:
+    """Path g on path a's table: IVF_SQ and IVF_RQ, then the query options
+    over IVF_PQ (B1 counted from 0 over them; rows are added last), then
+    hamming and multivector on tables of their own. Returns (summary, B1's
+    record)."""
+    results: dict = {"card": card}
+    for kind in ("IVF_SQ", "IVF_RQ"):
+        results[kind.lower()] = sqrq_index(tbl, queries, gt, gt_f, kind, card)
+    results["options"], krec = options_path(tbl, x, queries, card)
+    results["hamming"] = hamming_path(db, card)
+    results["multivector"] = multivector_path(db, card)
+    return results, krec
+
+
+def vector_family_only(card: str) -> tuple[dict, list[dict]]:
+    """Path g alone, on path a's table made anew (seed 0)."""
+    import pyarrow as pa
+    import torch
+
+    import lancedb_tpu_torch
+    from lancedb_tpu_torch.probes.common import make_clustered
+
+    n, dim = 1_000_000, 128
+    x, queries = make_clustered(np.random.default_rng(0), n, dim, n_queries=256)
+    ids = np.arange(n, dtype=np.int64)
+    x_d = torch.from_numpy(x).cuda()
+    xn2_d = torch.sum(x_d * x_d, dim=1)
+    gt = exact_gt(x_d, xn2_d, queries, 10)
+    gt_f = exact_gt(x_d, xn2_d, queries, 10, torch.from_numpy(ids % 10 < 5).cuda())
+    del x_d, xn2_d
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vf_") as tmp:
+        db = lancedb_tpu_torch.connect(tmp)
+        tbl = db.create_table("sift1m_like", pa.table({
+            "id": ids, "category": ids % 10,
+            "vector": pa.FixedSizeListArray.from_arrays(pa.array(x.ravel()), dim)}))
+        results, krec = vector_family_path(db, tbl, x, queries, gt, gt_f, card)
+    print(f"card: {card}", flush=True)
+    return results, [krec]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("all", "kernels", "large_d", "hnsw", "fts"),
-                    default="all",
-                    help="kernels: the kernel checks only; large_d, hnsw, fts: that path only")
+    ap.add_argument("--phase",
+                    choices=("all", "kernels", "large_d", "hnsw", "fts", "vector_family"),
+                    default="all", help="kernels: the kernel checks only; large_d, hnsw, fts, "
+                    "vector_family: that path only")
     ap.add_argument("--out", help="also write the full summary as JSON to this file")
     a = ap.parse_args()
     if not (REPO / "lancedb_tpu_torch" / "csrc").is_dir():
@@ -1710,11 +2134,13 @@ def main() -> int:
 
     summary: dict = {}
     kernels: list[dict] = []
-    if a.phase in ("large_d", "hnsw", "fts"):
+    if a.phase in ("large_d", "hnsw", "fts", "vector_family"):
         if a.phase == "large_d":
             summary["large_d"], kernels = large_d_path(card)
         elif a.phase == "fts":
             summary["fts"], kernels = fts_phase(card)
+        elif a.phase == "vector_family":
+            summary["vector_family"], kernels = vector_family_only(card)
         else:
             summary["hnsw"] = hnsw_only(card)
     else:

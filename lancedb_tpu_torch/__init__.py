@@ -9,8 +9,11 @@ Same surface and on-disk format as ``lancedb_tpu``:
     tbl.create_index(config=IvfPq(num_partitions=1024, num_sub_vectors=16))
     tbl.search(q).where("category < 5").nprobes(20).refine_factor(10).limit(10).to_arrow()
     tbl.create_index(config=IvfFlat(num_partitions=1024))  # or Flat()
+    tbl.create_index(config=IvfSq(num_partitions=1024))  # or IvfRq()
     tbl.create_index(config=HnswFlat())  # or HnswSq(), HnswPq()
     tbl.search(q).ef(64).limit(10).to_arrow()
+    tbl.search(q).metric("dot").distance_range(upper_bound=0.5).offset(5).to_arrow()
+    tbl.search(token_bag).limit(10).to_arrow()  # a multivector column: MaxSim
     tbl.create_fts_index("text"); tbl.create_scalar_index("category", index_type="BITMAP")
     tbl.search("quick fox", query_type="fts").limit(10).to_arrow()
     tbl.search((q, "quick fox"), query_type="hybrid").rerank(RRFReranker()).to_arrow()
@@ -40,6 +43,8 @@ from .index import (
     HnswSq,
     IvfFlat,
     IvfPq,
+    IvfRq,
+    IvfSq,
     LabelList,
 )
 from .session import Session
@@ -64,6 +69,8 @@ __all__ = [
     "HnswSq",
     "IvfFlat",
     "IvfPq",
+    "IvfRq",
+    "IvfSq",
     "LanceDBError",
     "InvalidInputError",
     "IndexNotFoundError",

@@ -56,15 +56,6 @@ def is_multivector_type(t: pa.DataType) -> bool:
     )
 
 
-def refuse_multivector(schema: pa.Schema, column: str) -> None:
-    """Multivector columns wait for a later slice: raise before any work."""
-    if column in schema.names and is_multivector_type(schema.field(column).type):
-        raise NotImplementedError(
-            f"column {column!r} holds multivectors, which are not ported to "
-            "lancedb_tpu_torch yet (ROADMAP A9)"
-        )
-
-
 def sanitize_vectors(
     table: pa.Table, on_bad_vectors: str = "error", fill_value: float = 0.0
 ) -> pa.Table:

@@ -1,8 +1,6 @@
-"""Index configuration — the FLAT, IVF_FLAT, IVF_PQ, HNSW, scalar
-(BTREE, BITMAP, LABEL_LIST, FM) and full-text (FTS) part of the
+"""Index configuration — the FLAT, IVF_FLAT, IVF_SQ, IVF_PQ, IVF_RQ, HNSW,
+scalar (BTREE, BITMAP, LABEL_LIST, FM) and full-text (FTS) part of the
 reference's index surface.
-
-IVF_SQ and IVF_RQ wait for a later slice (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -52,6 +50,38 @@ class IvfPq:
     opq_iters: int = 8
 
     index_type: str = "IVF_PQ"
+
+
+@dataclass
+class IvfSq:
+    """IVF + int8 scalar quantization (reference IvfSqIndexBuilder)."""
+
+    distance_type: str = "l2"
+    num_partitions: int | None = None
+    sample_rate: int = 256
+    max_iterations: int = 50
+    seed: int = 0
+    # dtype of the one-time table upload for the k-means (as IvfPq's); the
+    # affine codes are computed on the host from the f32 rows
+    build_precision: str = "bfloat16"
+
+    index_type: str = "IVF_SQ"
+
+
+@dataclass
+class IvfRq:
+    """IVF + RaBitQ-style binary residual quantization (reference IvfRq)."""
+
+    distance_type: str = "l2"
+    num_partitions: int | None = None
+    num_bits: int = 1
+    sample_rate: int = 256
+    max_iterations: int = 50
+    seed: int = 0
+    # dtype of the one-time table upload for the k-means and residuals
+    build_precision: str = "bfloat16"
+
+    index_type: str = "IVF_RQ"
 
 
 @dataclass

@@ -35,7 +35,6 @@ from collections import Counter
 import numpy as np
 import torch
 
-from ..arrow import refuse_multivector
 from ..errors import InvalidInputError
 from ..ops.distance import normalize_metric
 from ..ops.pq import adc_lut, default_num_sub_vectors, pq_encode, pq_train
@@ -436,7 +435,6 @@ def build_hnsw_index(dataset, column: str, config, name: str | None = None,
     kept for the API and the metadata; it does not bound this build."""
     device = resolve_device(device)
     t0 = time.time()
-    refuse_multivector(dataset.schema, column)
     metric = normalize_metric(config.distance_type)
     kind = _KIND[config.index_type]
     vectors, row_ids, frag_ids = _collect_vectors(dataset, column)

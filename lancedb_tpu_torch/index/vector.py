@@ -1,5 +1,5 @@
-"""Vector index build + search: FLAT, IVF_FLAT and IVF_PQ, and brute force
-for unindexed rows.
+"""Vector index build + search: FLAT, IVF_FLAT, IVF_SQ, IVF_PQ and IVF_RQ,
+and brute force for unindexed rows.
 
 Port of those parts of the reference's index/vector.py. The on-disk
 layout is the reference's, byte for byte, so either package reads what
@@ -15,21 +15,31 @@ the other wrote:
   and its storage precision in meta.json;
 * IVF_PQ keeps ``codes.npy`` (P, S_pad, pmax) uint8, S padded to 8 and
   pmax to 128, and ``rnorms.npy`` (P, pmax) f32 holding |c_p + r̃|² with
-  +3e38 on padding.
+  +3e38 on padding;
+* IVF_SQ keeps ``codes.npy`` (P, pmax, D) uint8, a per-dimension affine
+  code of the rows (``sq_scale.npy``, ``sq_offset.npy``), and
+  ``norms.npy`` (P, pmax) f32 holding |x̂|² with +3e38 on padding;
+* IVF_RQ keeps ``bits.npy`` (P, pmax, D/8) uint8, the signs of each
+  row's residual rotated by ``rotation.npy`` (D, D), packed
+  little-endian, with a per-row scale (``scales.npy``) and
+  ``rnorms.npy`` (P, pmax) holding |x̂|² with +3e38 on padding.
 
 IVF_PQ search is d(q, x̃) = |q|² − 2(q·c_p + q·r̃) + |x̃|²: probe
 selection, the per-query dot LUT and the ADC scan of ops/adc.py. IVF_FLAT
 search is probe selection and the grouped flat scan of ops/flat_scan.py;
-both scans run as CUDA kernels on the card. FLAT search is a plain
-product over the whole table. Top-k follows, and for IVF_PQ an optional
-fused refine against a device-resident copy of the column. Deletes and
-filters enter as a per-slot additive penalty.
+both scans run as CUDA kernels on the card. IVF_SQ and IVF_RQ search
+gather the probed blocks' codes a chunk of probes at a time and score
+them with torch products, as the reference scores them with XLA
+einsums: d = |q|² − 2(q·scale)·codes − 2 q·offset + |x̂|² for IVF_SQ,
+and q·x̂ = q·c_p + s·(Rq)·sign for IVF_RQ. FLAT search is a plain product
+over the whole table. Top-k follows, and for the quantized types an
+optional fused refine against a device-resident copy of the column.
+Deletes and filters enter as a per-slot additive penalty.
 
 Not ported: the reference's static-shape machinery (query buckets,
 probe-capacity buckets, the runtime probe mask and ``lax.scan``
 chunking) exists for XLA and has no use here: nprobes is a plain int and
-the probes are scanned directly. HNSW lives in index/hnsw.py; IVF_SQ and
-IVF_RQ wait for a later slice (ROADMAP A7).
+the probes are scanned directly. HNSW lives in index/hnsw.py.
 
 IVF_PQ builds take the reference's capacity modes at its thresholds:
 bf16 residuals above 2e9 bytes of f32 rows in a bf16 build, and above 8e9
@@ -49,7 +59,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..arrow import fsl_to_numpy, refuse_multivector
+from ..arrow import fsl_to_numpy
 from ..errors import InvalidInputError
 from ..io.object_store import ObjectStore
 from ..ops import prng
@@ -80,20 +90,16 @@ BF16_RESIDUAL_BYTES = 2_000_000_000
 RES_FREE_BYTES = 8_000_000_000
 
 # the types VectorSearcher serves; HNSW lives in index/hnsw.py
-PORTED_INDEX_TYPES = ("FLAT", "IVF_FLAT", "IVF_PQ")
-_NOT_PORTED = {"IVF_SQ": "A7", "IVF_RQ": "A7"}
+PORTED_INDEX_TYPES = ("FLAT", "IVF_FLAT", "IVF_SQ", "IVF_PQ", "IVF_RQ")
+# the types whose scan is approximate: they fuse the refine on the device,
+# and for cosine their scans give l2² on the unit sphere, 2·(1 − cos)
+QUANTIZED_INDEX_TYPES = ("IVF_SQ", "IVF_PQ", "IVF_RQ")
 
 
-def _not_ported(index_type: str) -> Exception:
-    """The error for an index type this package cannot build or load:
-    a later slice's (NotImplementedError naming its ROADMAP item), or
-    none the reference knows either (InvalidInputError, as there)."""
-    item = _NOT_PORTED.get(index_type)
-    if item is None:
-        return InvalidInputError(f"unsupported index_type {index_type!r}")
-    return NotImplementedError(
-        f"{index_type} indexes are not ported to lancedb_tpu_torch yet (ROADMAP {item})"
-    )
+def unsupported_index_type(index_type: str) -> InvalidInputError:
+    """The error for an index type neither package knows (as the
+    reference raises it)."""
+    return InvalidInputError(f"unsupported index_type {index_type!r}")
 
 
 @dataclass
@@ -232,19 +238,20 @@ def build_vector_index(
     name: str | None = None,
     device=None,
 ) -> IndexMeta:
-    """Build and persist one FLAT, IVF_FLAT or IVF_PQ index; returns its
-    catalog entry.
+    """Build and persist one FLAT, IVF_FLAT, IVF_SQ, IVF_PQ or IVF_RQ
+    index; returns its catalog entry.
 
     FLAT writes the rows as they are. For the IVF types the table uploads
-    to the device once; k-means, assignment (and for IVF_PQ residuals and
-    PQ training and encoding) run there, and only the small artifacts
-    (assignment, codes, rnorms) come back to be laid out and written."""
+    to the device once; k-means, assignment (and for IVF_PQ and IVF_RQ
+    residuals, for IVF_PQ PQ training and encoding) run there, and only
+    the small artifacts (assignment, residuals, codes, rnorms) come back to
+    be laid out and written. IVF_SQ's affine codes and IVF_RQ's rotation
+    and sign codes are host numpy, as the reference computes them."""
     device = resolve_device(device)
     t0 = time.time()
     index_type = config.index_type
     if index_type not in PORTED_INDEX_TYPES:
-        raise _not_ported(index_type)
-    refuse_multivector(dataset.schema, column)
+        raise unsupported_index_type(index_type)
     metric = normalize_metric(config.distance_type)
     vectors, row_ids, frag_ids = _collect_vectors(dataset, column)
     n, dim = vectors.shape
@@ -287,13 +294,15 @@ def _build_ivf(
     row_ids: np.ndarray, metric: str, device: torch.device,
 ) -> None:
     """The IVF types' files: k-means on the device, the padded block
-    layout, then IVF_FLAT's padded vectors or IVF_PQ's codes."""
+    layout, then IVF_FLAT's padded vectors, IVF_SQ's or IVF_PQ's codes or
+    IVF_RQ's sign bits."""
     index_type = config.index_type
     n, dim = vectors.shape
     nparts = config.num_partitions or default_num_partitions(n)
     if nparts > n:
         raise InvalidInputError(f"num_partitions {nparts} > num_rows {n}")
     is_pq = index_type == "IVF_PQ"
+    need_res = index_type in ("IVF_PQ", "IVF_RQ")
     if is_pq:
         if config.num_bits not in (4, 8):
             raise InvalidInputError("num_bits must be 4 or 8")
@@ -314,7 +323,7 @@ def _build_ivf(
     res_free = is_pq and not opq and n * dim * 4 > RES_FREE_BYTES
     res_dtype = (
         "bfloat16"
-        if is_pq and build_dtype == torch.bfloat16 and n * dim * 4 > BF16_RESIDUAL_BYTES
+        if need_res and build_dtype == torch.bfloat16 and n * dim * 4 > BF16_RESIDUAL_BYTES
         else "float32"
     )
     if is_pq:
@@ -338,7 +347,8 @@ def _build_ivf(
         xd, torch.from_numpy(sel), torch.from_numpy(pool_sel), prng.prng_key(config.seed),
         torch.from_numpy(reseed),
         k=nparts, max_iters=config.max_iterations, metric=train_metric,
-        chunk=min(chunk, n), with_residuals=is_pq and not res_free, residual_dtype=res_dtype,
+        chunk=min(chunk, n), with_residuals=need_res and not res_free,
+        residual_dtype=res_dtype,
     )
     if not res_free:
         del xd
@@ -353,9 +363,18 @@ def _build_ivf(
     _save_npy(store, f"{prefix}/row_ids.npy", rid_padded)
     _save_npy(store, f"{prefix}/counts.npy", counts.astype(np.int32))
     meta_doc.update(num_partitions=len(counts), num_logical_partitions=nparts, pmax=pmax)
-    if not is_pq:
+    if index_type == "IVF_FLAT":
         _save_npy(store, f"{prefix}/vectors.npy", _scatter_padded(vectors, order, counts, pmax))
         meta_doc["precision"] = getattr(config, "precision", "float32")
+        return
+    if index_type == "IVF_SQ":
+        _save_sq(store, prefix, vectors, order, counts, pmax)
+        return
+    if index_type == "IVF_RQ":
+        residuals = residuals_d.float().cpu().numpy()
+        del residuals_d
+        _save_rq(store, prefix, config.seed, residuals, centroids, assign, order, counts, pmax)
+        meta_doc.update(num_bits=1)
         return
 
     if opq:
@@ -417,6 +436,48 @@ def _build_ivf(
         _scatter_padded(rnorms, order, counts, pmax, fill=PAD_PENALTY),
     )
     meta_doc.update(num_sub_vectors=nsub, num_bits=config.num_bits)
+
+
+def _save_sq(store, prefix: str, vectors: np.ndarray, order, counts, pmax: int) -> None:
+    """IVF_SQ's files: a per-dimension affine int8 code of the rows (the
+    reference's numpy, so the codes agree exactly: ``np.round`` rounds
+    half to even) and |x̂|² of each decoded row."""
+    lo = vectors.min(axis=0)
+    hi = vectors.max(axis=0)
+    scale = np.maximum((hi - lo) / 255.0, 1e-12).astype(np.float32)
+    codes = np.clip(np.round((vectors - lo) / scale), 0, 255).astype(np.uint8)
+    deq = codes.astype(np.float32) * scale + lo
+    norms2 = np.sum(deq.astype(np.float64) ** 2, axis=1).astype(np.float32)
+    _save_npy(store, f"{prefix}/codes.npy", _scatter_padded(codes, order, counts, pmax))
+    _save_npy(store, f"{prefix}/norms.npy",
+              _scatter_padded(norms2, order, counts, pmax, fill=PAD_PENALTY))
+    _save_npy(store, f"{prefix}/sq_scale.npy", scale)
+    _save_npy(store, f"{prefix}/sq_offset.npy", lo.astype(np.float32))
+
+
+def _save_rq(store, prefix: str, seed: int, residuals: np.ndarray, centroids: np.ndarray,
+             assign: np.ndarray, order, counts, pmax: int) -> None:
+    """IVF_RQ's files (RaBitQ-style 1-bit residual code): the residuals
+    rotated by a seeded orthonormal matrix (numpy's QR of the reference's
+    draw, so the rotation agrees bit for bit), their signs packed
+    little-endian, a per-row scale s = mean|u| and |x̂|² of
+    x̂ = c_p + Rᵀ(s·sign(u))."""
+    dim = residuals.shape[1]
+    gauss = np.random.default_rng(seed + 7).standard_normal((dim, dim)).astype(np.float32)
+    rot, _ = np.linalg.qr(gauss)
+    rot = rot.astype(np.float32)
+    u = residuals @ rot.T
+    signs = u > 0
+    scales = np.mean(np.abs(u), axis=1).astype(np.float32)
+    bits = np.packbits(signs, axis=1, bitorder="little")
+    recon = (scales[:, None] * np.where(signs, 1.0, -1.0).astype(np.float32)) @ rot
+    recon = recon + centroids[assign]
+    rnorms = np.sum(recon.astype(np.float64) ** 2, axis=1).astype(np.float32)
+    _save_npy(store, f"{prefix}/bits.npy", _scatter_padded(bits, order, counts, pmax))
+    _save_npy(store, f"{prefix}/scales.npy", _scatter_padded(scales, order, counts, pmax))
+    _save_npy(store, f"{prefix}/rnorms.npy",
+              _scatter_padded(rnorms, order, counts, pmax, fill=PAD_PENALTY))
+    _save_npy(store, f"{prefix}/rotation.npy", rot)
 
 
 # ------------------------------------------------------------------ search
@@ -498,6 +559,85 @@ def _probe_topk(dists: torch.Tensor, probe_ids: torch.Tensor, k: int):
         vals = torch.nn.functional.pad(vals, (0, k - k_sel), value=float("inf"))
         slots = torch.nn.functional.pad(slots, (0, k - k_sel))
     return vals, slots
+
+
+def _gather_chunk(nprobes: int, qb: int, pmax: int, width: int) -> int:
+    """Probes per gathered chunk of the IVF_SQ and IVF_RQ scans: at most 8,
+    and a chunk's (Q, chunk, pmax, width) gather with its f32 copy under
+    2^30 bytes (the reference's bound, ``_ivf_sq_search_device_rt``)."""
+    return max(1, min(nprobes, 8, ((1 << 30) // (5 * width)) // max(1, qb * pmax)))
+
+
+def _ivf_sq_search(
+    q: torch.Tensor,
+    dev: dict[str, torch.Tensor],
+    slot_penalty: torch.Tensor | None,
+    nprobes: int,
+    k: int,
+    metric: str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """IVF_SQ probed scan (the reference's _ivf_sq_search_device_rt):
+    q·x̂ = (q∘scale)·codes + q·offset over the probed blocks, a chunk of
+    probes at a time. The codes are exact in ``matmul_dtype`` and q∘scale
+    is rounded to it (``lowp``); the products accumulate in f32. The dot
+    metric finds padding by norms ≥ PAD_PENALTY."""
+    codes, norms2 = dev["codes"], dev["norms2"]
+    qb = q.shape[0]
+    nparts, pmax, dim = codes.shape
+    probe_ids, _ = _select_probes(q, dev["centroids"], nprobes, metric)
+    q_scaled = lowp(q * dev["scale"][None, :])
+    q_off = (q @ dev["offset"])[:, None, None]
+    qn2 = torch.sum(torch.square(q), dim=-1)[:, None, None]
+    add = torch.where(norms2 >= _PAD, _PAD, 0.0) if metric == "dot" else norms2
+    chunk = _gather_chunk(nprobes, qb, pmax, dim)
+    dists = torch.empty((qb, nprobes, pmax), dtype=torch.float32, device=q.device)
+    for c0 in range(0, nprobes, chunk):
+        pid = probe_ids[:, c0 : c0 + chunk]
+        dots = torch.einsum("qnpd,qd->qnp", codes[pid].float(), q_scaled) + q_off
+        d = -dots if metric == "dot" else qn2 - 2.0 * dots
+        d = d + add[pid]
+        if slot_penalty is not None:
+            d = d + slot_penalty.reshape(nparts, pmax)[pid]
+        dists[:, c0 : c0 + chunk] = d
+    return _probe_topk(dists, probe_ids, k)
+
+
+def _ivf_rq_search(
+    q: torch.Tensor,
+    dev: dict[str, torch.Tensor],
+    slot_penalty: torch.Tensor | None,
+    nprobes: int,
+    k: int,
+    metric: str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """IVF_RQ probed scan (the reference's _ivf_rq_search_device_rt):
+    q·x̂ = q·c_p + s·(Rq)·sign over the probed blocks, a chunk of probes at
+    a time. The bits unpack little-endian to ±1 (exact in any dtype), Rq
+    is rounded to ``matmul_dtype`` and the products accumulate in f32."""
+    bits, scales, rnorms = dev["bits"], dev["scales"], dev["rnorms"]
+    qb = q.shape[0]
+    nparts, pmax, nbytes = bits.shape
+    dim = dev["rotation"].shape[0]
+    probe_ids, probe_dots = _select_probes(q, dev["centroids"], nprobes, metric)
+    q_rot = lowp(q @ dev["rotation"].T)
+    qn2 = torch.sum(torch.square(q), dim=-1)[:, None, None]
+    add = torch.where(rnorms >= _PAD, _PAD, 0.0) if metric == "dot" else rnorms
+    shifts = torch.arange(8, dtype=torch.uint8, device=q.device)
+    chunk = _gather_chunk(nprobes, qb, pmax, 8 * nbytes)
+    dists = torch.empty((qb, nprobes, pmax), dtype=torch.float32, device=q.device)
+    for c0 in range(0, nprobes, chunk):
+        pid = probe_ids[:, c0 : c0 + chunk]
+        g_bits = bits[pid]
+        pm1 = ((g_bits[..., None] >> shifts) & 1).float().mul_(2.0).sub_(1.0)
+        pm1 = pm1.reshape(*g_bits.shape[:-1], -1)[..., :dim]
+        dots_r = torch.einsum("qnpd,qd->qnp", pm1, q_rot)
+        qdotx = probe_dots[:, c0 : c0 + chunk, None] + scales[pid] * dots_r
+        d = -qdotx if metric == "dot" else qn2 - 2.0 * qdotx
+        d = d + add[pid]
+        if slot_penalty is not None:
+            d = d + slot_penalty.reshape(nparts, pmax)[pid]
+        dists[:, c0 : c0 + chunk] = d
+    return _probe_topk(dists, probe_ids, k)
 
 
 def _flat_coefs(q: torch.Tensor, norms2: torch.Tensor, pad_pen: torch.Tensor, metric: str):
@@ -649,7 +789,9 @@ def _device_refine_step(
 _INDEX_FILES = {
     "FLAT": ("vectors", "row_ids"),
     "IVF_FLAT": ("centroids", "vectors", "row_ids"),
+    "IVF_SQ": ("centroids", "codes", "norms", "sq_scale", "sq_offset", "row_ids"),
     "IVF_PQ": ("centroids", "codes", "rnorms", "codebooks", "row_ids"),
+    "IVF_RQ": ("centroids", "bits", "scales", "rnorms", "rotation", "row_ids"),
 }
 
 
@@ -666,14 +808,14 @@ def _planner_batch(nq: int) -> int:
 
 
 class VectorSearcher:
-    """A loaded, device-resident FLAT, IVF_FLAT or IVF_PQ index ready to
-    serve queries."""
+    """A loaded, device-resident FLAT, IVF_FLAT, IVF_SQ, IVF_PQ or IVF_RQ
+    index ready to serve queries."""
 
     def __init__(self, store: ObjectStore, prefix: str, meta: IndexMeta | None = None,
                  device=None):
         params = json.loads(store.read_bytes(f"{prefix}/meta.json"))
         if params["index_type"] not in PORTED_INDEX_TYPES:
-            raise _not_ported(params["index_type"])
+            raise unsupported_index_type(params["index_type"])
         names = list(_INDEX_FILES[params["index_type"]])
         if params.get("opq"):
             names.append("rotation")
@@ -682,11 +824,11 @@ class VectorSearcher:
 
     @classmethod
     def from_arrays(cls, meta_doc: dict, arrays: dict, device=None) -> "VectorSearcher":
-        """A searcher over the reference's arrays of a FLAT, IVF_FLAT or
-        IVF_PQ index (the contents of its .npy files, by file stem)
-        without touching disk."""
+        """A searcher over the reference's arrays of a FLAT, IVF_FLAT,
+        IVF_SQ, IVF_PQ or IVF_RQ index (the contents of its .npy files, by
+        file stem) without touching disk."""
         if meta_doc["index_type"] not in PORTED_INDEX_TYPES:
-            raise _not_ported(meta_doc["index_type"])
+            raise unsupported_index_type(meta_doc["index_type"])
         self = cls.__new__(cls)
         self._load(dict(meta_doc), {k: np.asarray(v) for k, v in arrays.items()}, device)
         return self
@@ -726,12 +868,19 @@ class VectorSearcher:
             n2 = self._device["norms2"] = _to_device(norms2, self.device)
             self._device["pad_pen"] = torch.where(n2 >= _PAD, _PAD, 0.0)
             return
-        self._device["codes"] = _to_device(arrays["codes"], self.device)
-        for name in ("rnorms", "codebooks", "rotation"):  # rotation: OPQ indexes only
-            if name in arrays:
-                self._device[name] = _to_device(
-                    arrays[name].astype(np.float32, copy=False), self.device
-                )
+        # codes and bits stay uint8 on the device; the rest is f32, under
+        # the names the scans read
+        names = {"IVF_SQ": {"codes": "codes", "norms": "norms2", "sq_scale": "scale",
+                            "sq_offset": "offset"},
+                 "IVF_RQ": {"bits": "bits", "scales": "scales", "rnorms": "rnorms",
+                            "rotation": "rotation"}}.get(self.index_type)
+        if names is None:  # IVF_PQ; rotation for OPQ indexes only
+            names = {n: n for n in ("codes", "rnorms", "codebooks", "rotation") if n in arrays}
+        for stem, name in names.items():
+            arr = arrays[stem]
+            if arr.dtype != np.uint8:
+                arr = arr.astype(np.float32, copy=False)
+            self._device[name] = _to_device(arr, self.device)
 
     def _load_flat(self, arrays: dict) -> None:
         """FLAT: the rows padded to a multiple of 8, padding penalized."""
@@ -823,7 +972,7 @@ class VectorSearcher:
         return (
             params.refine_factor is not None
             and self.device_refine_active
-            and self.index_type == "IVF_PQ"
+            and self.index_type in QUANTIZED_INDEX_TYPES
             and (params.precision != "float32"
                  or self._device["refine_vecs"].dtype == torch.float32)
         )
@@ -840,14 +989,15 @@ class VectorSearcher:
         slot's block centroid, rebuilt in f32 inside the refine step.
         Rows deleted after the build map to row 0: their slots are
         penalized before the refine. FLAT and IVF_FLAT indexes scan the
-        vectors themselves and keep the host refine (False)."""
+        vectors themselves and keep the host refine (False); IVF_SQ,
+        IVF_PQ and IVF_RQ fuse it."""
         if self.device_refine_active:
             return True
         if getattr(self, "_refine_unavailable", False):
             return False
         if os.environ.get("LANCEDB_TPU_DEVICE_REFINE", "1") == "0":
             return False
-        if self.index_type != "IVF_PQ":
+        if self.index_type not in QUANTIZED_INDEX_TYPES:
             self._refine_unavailable = True
             return False
         n_live = dataset.count_rows() if hasattr(dataset, "count_rows") else None
@@ -940,8 +1090,8 @@ class VectorSearcher:
         invalid = vals >= PAD_PENALTY / 2
         rids = np.where(invalid, _INVALID_ROWID, rids)
         vals = np.where(invalid, np.float32(np.inf), vals)
-        if self.metric == "cosine" and not fused and self.index_type == "IVF_PQ":
-            # the ADC scan computes l2² on the unit sphere = 2·(1−cos);
+        if self.metric == "cosine" and not fused and self.index_type in QUANTIZED_INDEX_TYPES:
+            # the quantized scans compute l2² on the unit sphere = 2·(1−cos);
             # FLAT and IVF_FLAT give the cosine distance directly
             vals = np.where(np.isfinite(vals), vals / 2.0, vals)
         return vals.astype(np.float32), rids
@@ -961,6 +1111,10 @@ class VectorSearcher:
             )
         if self.index_type == "IVF_PQ":
             return _ivf_pq_search(q, dev, pen, nprobes, k, self.metric)
+        if self.index_type == "IVF_SQ":
+            return _ivf_sq_search(q, dev, pen, nprobes, k, self.metric)
+        if self.index_type == "IVF_RQ":
+            return _ivf_rq_search(q, dev, pen, nprobes, k, self.metric)
         # The reference's batched-query planner: without a fused probed
         # kernel, a large batch reads less in one shared full scan than in
         # its probed gathers (qb·nprobes ≥ 2.5·P). The grouped kernel reads
@@ -1034,7 +1188,7 @@ def load_searcher(dataset, meta: IndexMeta, device=None):
 
         return HnswSearcher(dataset.store, dataset.index_dir(meta.uuid), meta, device)
     if meta.index_type not in PORTED_INDEX_TYPES:
-        raise _not_ported(meta.index_type)
+        raise unsupported_index_type(meta.index_type)
     return VectorSearcher(dataset.store, dataset.index_dir(meta.uuid), meta, device)
 
 
@@ -1048,13 +1202,15 @@ def brute_force_search(
     device=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Index-free exact search over in-memory vectors (unindexed delta
-    fragments and tiny tables)."""
+    fragments and tiny tables). For hamming the vectors and queries are
+    packed uint8 bits; ties come out lower row first."""
     metric = normalize_metric(metric)
     dev = resolve_device(device)
     k = min(k, len(vectors))
-    q = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+    dtype = np.uint8 if metric == "hamming" else np.float32
+    q = np.atleast_2d(np.asarray(queries, dtype=dtype))
     d = pairwise_distance(
-        _to_device(q, dev), _to_device(np.asarray(vectors, dtype=np.float32), dev), metric,
+        _to_device(q, dev), _to_device(np.asarray(vectors, dtype=dtype), dev), metric,
         precision="bfloat16" if precision == "bfloat16" else "float32",
     )
     vals, idx = topk_smallest(d, k)

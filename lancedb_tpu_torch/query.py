@@ -2,22 +2,25 @@
 
 Port of the reference's query.py:
 
-  1. resolve the vector column and its index (FLAT, IVF_FLAT, IVF_PQ, HNSW); compute the
-     prefilter row-id set from the SQL predicate (a scalar-index lookup when
-     one serves the predicate, else a host Arrow-compute scan)
+  1. resolve the vector column and its index (FLAT, the IVF types, HNSW;
+     none when the query bypasses it or asks for another metric); compute
+     the prefilter row-id set from the SQL predicate (a scalar-index
+     lookup when one serves the predicate, else a host Arrow-compute scan)
   2. device search over the indexed fragments + brute force over
-     unindexed "delta" fragments, merged on the host
+     unindexed "delta" fragments (skipped by fast_search), merged on the
+     host; hamming brute-forces packed uint8 columns
   3. optional exact refine (fused on the device when the column fits)
-  4. hydrate the selected columns with take_rows, append _distance
+  4. distance range on the host, then hydrate the selected columns with
+     take_rows, append _distance; postfilter and offset apply to the rows
 
 Full-text search runs the BM25 index on the host (index/fts.py). A hybrid
 search runs its full-text legs on host threads while the calling thread
 runs the vector legs (every CUDA call stays on it), then fuses each pair
 with a reranker (RRF by default).
 
-Multivector queries, plain scans, postfilters, offsets, distance ranges,
-metric overrides, plan explanation and text queries that need an
-embedding function wait for later slices (ROADMAP A4, A9, A12).
+A multivector column is searched by late interaction
+(index/multivector.py). Plain scans, plan explanation and text queries
+that need an embedding function wait for later slices (ROADMAP A4, A12).
 """
 
 from __future__ import annotations
@@ -29,10 +32,12 @@ import numpy as np
 import pyarrow as pa
 
 from ._surface import NotPortedSurface
-from .arrow import fsl_to_numpy, refuse_multivector, vector_column_name
+from .arrow import fsl_to_numpy, is_multivector_type, vector_column_name
 from .errors import InvalidInputError
+from .filters.eval import evaluate_predicate_mask
 from .filters.sql import parse_sql_expr
 from .index.vector import SearchParams, brute_force_search
+from .ops.distance import normalize_metric
 from .rerankers.base import RELEVANCE_COL, SCORE_COL
 from .storage.dataset import ROW_ID_COL
 
@@ -52,11 +57,18 @@ class VectorQueryRequest:
     column: str | None = None
     query_vectors: list[np.ndarray] = field(default_factory=list)
     k: int = DEFAULT_TOP_K
+    offset: int = 0
     filter: str | None = None
+    prefilter: bool = True  # False: the filter applies to the hydrated rows
     minimum_nprobes: int = DEFAULT_NPROBES
     maximum_nprobes: int | None = DEFAULT_NPROBES
     refine_factor: int | None = None
+    distance_type: str | None = None  # None: the index's metric (l2 without one)
+    lower_bound: float | None = None  # distance range [lower, upper)
+    upper_bound: float | None = None
     ef: int | None = None  # HNSW search width
+    use_index: bool = True  # False: brute force (bypass_vector_index)
+    fast_search: bool = False  # True: skip the unindexed delta fragments
     precision: str = "default"  # FLAT scans and the brute force of delta rows
     select: list[str] | None = None
     with_row_id: bool = False
@@ -68,7 +80,8 @@ def execute_vector_query(table, req: VectorQueryRequest) -> pa.Table:
     column = req.column or vector_column_name(ds.schema)
     if not req.query_vectors:
         raise InvalidInputError("no query vector provided")
-    refuse_multivector(ds.schema, column)
+    if column in ds.schema.names and is_multivector_type(ds.schema.field(column).type):
+        return _execute_multivector_query(table, req, column)
     # nprobes validation (reference query.rs minimum/maximum_nprobes;
     # maximum_nprobes=0 means "no limit")
     if req.minimum_nprobes <= 0:
@@ -82,24 +95,31 @@ def execute_vector_query(table, req: VectorQueryRequest) -> pa.Table:
     queries = np.stack([np.asarray(v, dtype=np.float32).reshape(-1) for v in req.query_vectors])
     multi = len(req.query_vectors) > 1
 
-    index_meta = next(
-        (ix for ix in ds.manifest.indices
-         if ix.columns == [column] and ix.index_type.startswith(("IVF", "FLAT"))),
-        None,
-    )
+    index_meta = None
+    if req.use_index:
+        index_meta = next(
+            (ix for ix in ds.manifest.indices
+             if ix.columns == [column] and ix.index_type.startswith(("IVF", "FLAT"))),
+            None,
+        )
     searcher = table._get_searcher(index_meta) if index_meta is not None else None
+    metric = normalize_metric(req.distance_type or (searcher.metric if searcher else "l2"))
+    if searcher is not None and req.distance_type is not None and metric != searcher.metric:
+        # a metric the index was not built for: brute force in that metric
+        searcher = index_meta = None
 
     # ---- prefilter -------------------------------------------------------
     allowed: np.ndarray | None = None
-    if req.filter is not None:
+    if req.filter is not None and req.prefilter:
         allowed = compute_allowed_rowids(table, req.filter)
         if len(allowed) == 0:
             return _empty_result(table, req, multi)
+    k_search = req.k + req.offset
 
     # ---- search ----------------------------------------------------------
     if searcher is None:
         dists, rowids = _brute_force_fragments(
-            table, column, queries, req, "l2", frags=ds.manifest.fragments
+            table, column, queries, req, k_search, metric, frags=ds.manifest.fragments
         )
     else:
         # rows deleted after the build, and fragments dropped since
@@ -114,11 +134,11 @@ def execute_vector_query(table, req: VectorQueryRequest) -> pa.Table:
             )
 
         def run(nprobes: int):
-            params = SearchParams(k=req.k, nprobes=nprobes, refine_factor=req.refine_factor,
+            params = SearchParams(k=k_search, nprobes=nprobes, refine_factor=req.refine_factor,
                                   ef=req.ef, precision=req.precision)
             d, r = searcher.search(queries, params, slot_penalty=pen)
             if req.refine_factor is not None and not searcher.will_fuse_refine(params):
-                d, r = searcher.refine(ds, column, queries, d, r, req.k)
+                d, r = searcher.refine(ds, column, queries, d, r, k_search)
             return d, r
 
         dists, rowids = run(req.minimum_nprobes)
@@ -132,10 +152,67 @@ def execute_vector_query(table, req: VectorQueryRequest) -> pa.Table:
         # delta fragments not covered by the index → brute force + merge
         covered = set(index_meta.fragment_ids)
         delta = [f for f in ds.manifest.fragments if f.id not in covered]
-        if delta:
-            d2, r2 = _brute_force_fragments(table, column, queries, req, searcher.metric, delta)
-            dists, rowids = _merge_host(dists, rowids, d2, r2, req.k)
-    return _hydrate_results(table, req, dists, rowids, multi)
+        if delta and not req.fast_search:
+            d2, r2 = _brute_force_fragments(table, column, queries, req, k_search, metric, delta)
+            dists, rowids = _merge_host(dists, rowids, d2, r2, k_search)
+
+    # ---- distance range: lower bound inclusive, upper bound exclusive ----
+    if req.lower_bound is not None:
+        dists = np.where(dists >= req.lower_bound, dists, np.inf)
+    if req.upper_bound is not None:
+        dists = np.where(dists < req.upper_bound, dists, np.inf)
+    rowids = np.where(np.isfinite(dists), rowids, _INVALID_ROWID)
+    out = _hydrate_results(table, req, dists, rowids, multi)
+    return _postfilter_and_offset(out, req, len(req.query_vectors) if multi else 0)
+
+
+def _postfilter_and_offset(out: pa.Table, req: VectorQueryRequest, nq_multi: int) -> pa.Table:
+    """The filter on the hydrated rows when it is a postfilter, then each
+    query's rows ``offset`` to ``offset + k`` (split by query_index for a
+    batch of ``nq_multi`` queries)."""
+    if req.filter is not None and not req.prefilter and out.num_rows:
+        out = out.filter(pa.array(evaluate_predicate_mask(out, req.filter)))
+    if req.offset:
+        if nq_multi:
+            out = pa.concat_tables([
+                out.filter(pa.compute.equal(out.column(QUERY_INDEX_COL), qi))
+                .slice(req.offset, req.k)
+                for qi in range(nq_multi)
+            ])
+        else:
+            out = out.slice(req.offset, req.k)
+    return out
+
+
+def _execute_multivector_query(table, req: VectorQueryRequest, column: str) -> pa.Table:
+    """ColBERT-style MaxSim retrieval over a multivector column (the
+    reference's query.py:240-276): the query's token bag arrives as a list
+    of rows and is stacked back; the prefilter is a scan of the table."""
+    from .index.multivector import multivector_search
+
+    ds = table._dataset
+    tokens = np.stack([np.asarray(v, dtype=np.float32).reshape(-1) for v in req.query_vectors])
+    allowed = None
+    if req.filter is not None and req.prefilter:
+        t = ds.to_table(columns=[], predicate=req.filter, with_row_id=True)
+        allowed = np.sort(t.column(ROW_ID_COL).to_numpy().astype(np.uint64))
+        if len(allowed) == 0:
+            return _empty_result(table, req, multi=False)
+    searcher = None
+    if req.use_index:
+        for ix in ds.manifest.indices:
+            if ix.columns == [column] and ix.params.get("multivector"):
+                # served only while it covers every fragment
+                if {f.id for f in ds.manifest.fragments} == set(ix.fragment_ids):
+                    searcher = table._get_searcher(ix)
+                break
+    scores, rowids = multivector_search(
+        table, column, tokens, req.k + req.offset,
+        searcher=searcher, nprobes=req.minimum_nprobes, allowed=allowed,
+    )
+    # similarity → distance: a higher MaxSim is closer
+    out = _hydrate_results(table, req, -scores[None, :], rowids[None, :], multi=False)
+    return _postfilter_and_offset(out, req, 0)
 
 
 def compute_allowed_rowids(table, predicate: str) -> np.ndarray:
@@ -170,17 +247,18 @@ def _deleted_rowids(ds, index_meta) -> tuple[np.ndarray | None, set[int] | None]
     return deleted, (vanished or None)
 
 
-def _brute_force_fragments(table, column, queries, req, metric, frags):
-    """Exact scan over a set of fragments (predicate applied during scan)."""
+def _brute_force_fragments(table, column, queries, req, k, metric, frags):
+    """Exact scan over a set of fragments (a prefilter applied during the
+    scan); hamming reads the column as packed uint8 bits."""
     wanted = {f.id for f in frags}
+    dtype = np.uint8 if metric == "hamming" else np.float32
     mats, rids = [], []
     for m, tbl in table._dataset.scan_fragments(
-        columns=[column], predicate=req.filter, with_row_id=True,
+        columns=[column], predicate=req.filter if req.prefilter else None, with_row_id=True,
     ):
         if m.id in wanted:
-            mats.append(fsl_to_numpy(tbl.column(column), dtype=np.float32))
+            mats.append(fsl_to_numpy(tbl.column(column), dtype=dtype))
             rids.append(tbl.column(ROW_ID_COL).to_numpy().astype(np.uint64))
-    k = req.k
     n = sum(len(r) for r in rids)
     if n == 0:
         nq = queries.shape[0]
@@ -189,7 +267,8 @@ def _brute_force_fragments(table, column, queries, req, metric, frags):
             np.full((nq, k), _INVALID_ROWID, np.uint64),
         )
     d, r = brute_force_search(
-        np.concatenate(mats), np.concatenate(rids), queries, min(k, n), metric,
+        np.concatenate(mats), np.concatenate(rids),
+        queries.astype(dtype) if metric == "hamming" else queries, min(k, n), metric,
         precision="bfloat16" if req.precision == "bfloat16" else "float32",
         device=table._device,
     )
@@ -251,7 +330,7 @@ class LanceQueryBuilder(NotPortedSurface):
     setters every search kind shares, and the dispatch on query type."""
 
     _NOT_PORTED = dict.fromkeys(
-        ("offset", "with_row_address", "postfilter", "filter", "order_by", "fragment_ids",
+        ("with_row_address", "filter", "order_by", "fragment_ids",
          "with_fragments", "to_batches", "to_pandas", "to_polars", "to_df", "to_table",
          "to_pyarrow", "to_json", "to_reader", "to_pydantic", "output_schema",
          "to_query_object", "explain_plan", "analyze_plan"),
@@ -262,10 +341,12 @@ class LanceQueryBuilder(NotPortedSurface):
         self._table = table
         self._req = VectorQueryRequest()
 
-    def where(self, predicate) -> "LanceQueryBuilder":
-        """SQL prefilter, or a substrait ExtendedExpression blob
-        (reference QueryFilter, query.rs:792-812); multiple calls
-        AND-compose."""
+    def where(self, predicate, prefilter: bool = True) -> "LanceQueryBuilder":
+        """SQL filter, or a substrait ExtendedExpression blob (reference
+        QueryFilter, query.rs:792-812); multiple calls AND-compose. With
+        ``prefilter`` False (or after postfilter()) it applies to the
+        search's results instead of before the search; as in the
+        reference, each call sets the mode anew."""
         from .filters.substrait import is_substrait_filter, substrait_to_sql
 
         if is_substrait_filter(predicate):
@@ -274,6 +355,18 @@ class LanceQueryBuilder(NotPortedSurface):
         if self._req.filter is not None:
             predicate = f"({self._req.filter}) AND ({predicate})"
         self._req.filter = predicate
+        self._req.prefilter = prefilter
+        return self
+
+    def postfilter(self) -> "LanceQueryBuilder":
+        """Apply the filter AFTER the search (reference postfilter())."""
+        self._req.prefilter = False
+        return self
+
+    def offset(self, n: int) -> "LanceQueryBuilder":
+        """Skip each query's first ``n`` results (a hybrid search ignores
+        it, as the reference's does)."""
+        self._req.offset = int(n)
         return self
 
     def select(self, columns: list[str]) -> "LanceQueryBuilder":
@@ -334,8 +427,7 @@ class LanceVectorQueryBuilder(LanceQueryBuilder):
 
     _NOT_PORTED = {
         **LanceQueryBuilder._NOT_PORTED,
-        **dict.fromkeys(("metric", "distance_type", "distance_range", "bypass_vector_index",
-                         "fast_search", "vector", "column"), "A4"),
+        **dict.fromkeys(("vector", "column"), "A4"),
         "use_lsm": "A12",
     }
 
@@ -362,9 +454,34 @@ class LanceVectorQueryBuilder(LanceQueryBuilder):
         self._req.refine_factor = int(rf)
         return self
 
+    def metric(self, metric: str) -> "LanceVectorQueryBuilder":
+        """The distance metric: l2, cosine, dot or hamming (packed uint8
+        columns). One the index was not built with brute-forces."""
+        self._req.distance_type = normalize_metric(metric)
+        return self
+
+    distance_type = metric
+
+    def distance_range(self, lower_bound: float | None = None,
+                       upper_bound: float | None = None) -> "LanceVectorQueryBuilder":
+        """Keep results with lower_bound <= distance < upper_bound."""
+        self._req.lower_bound = lower_bound
+        self._req.upper_bound = upper_bound
+        return self
+
     def ef(self, ef: int) -> "LanceVectorQueryBuilder":
         """HNSW search width (beam size); other index types ignore it."""
         self._req.ef = int(ef)
+        return self
+
+    def bypass_vector_index(self) -> "LanceVectorQueryBuilder":
+        """Exact brute force, whatever index the column has."""
+        self._req.use_index = False
+        return self
+
+    def fast_search(self) -> "LanceVectorQueryBuilder":
+        """Search the index only, skipping rows added since its build."""
+        self._req.fast_search = True
         return self
 
     def precision(self, p: str) -> "LanceVectorQueryBuilder":
@@ -423,7 +540,9 @@ class LanceFtsQueryBuilder(LanceQueryBuilder):
             self._query,
             columns=self._fts_columns,
             k=self._req.k,
+            offset=self._req.offset,
             filter=self._req.filter,
+            prefilter=self._req.prefilter,
             select=self._req.select,
             with_row_id=self._req.with_row_id or self._reranker is not None,
         )
@@ -437,11 +556,6 @@ class LanceFtsQueryBuilder(LanceQueryBuilder):
 class LanceHybridQueryBuilder(LanceQueryBuilder):
     """Hybrid = full text ∥ vector, fused by a reranker (reference
     query.py:1144-1366; rust execute_hybrid, query.rs:1372-1445)."""
-
-    _NOT_PORTED = {
-        **LanceQueryBuilder._NOT_PORTED,
-        **dict.fromkeys(("distance_range", "metric", "distance_type"), "A4"),
-    }
 
     def __init__(self, table, text_query, vector_query=None, vector_column_name=None,
                  fts_columns=None):
@@ -487,6 +601,12 @@ class LanceHybridQueryBuilder(LanceQueryBuilder):
         self._vq_opts["maximum_nprobes"] = n
         return self
 
+    def distance_range(self, lower_bound: float | None = None,
+                       upper_bound: float | None = None) -> "LanceHybridQueryBuilder":
+        """Bound the vector leg's distances before fusion."""
+        self._vq_opts["distance_range"] = (lower_bound, upper_bound)
+        return self
+
     def ef(self, ef: int) -> "LanceHybridQueryBuilder":
         self._vq_opts["ef"] = ef
         return self
@@ -494,6 +614,12 @@ class LanceHybridQueryBuilder(LanceQueryBuilder):
     def refine_factor(self, rf: int) -> "LanceHybridQueryBuilder":
         self._vq_opts["refine_factor"] = rf
         return self
+
+    def metric(self, m: str) -> "LanceHybridQueryBuilder":
+        self._vq_opts["metric"] = m
+        return self
+
+    distance_type = metric
 
     def text(self, query) -> "LanceHybridQueryBuilder":
         """Replace the FTS leg's query."""
@@ -508,17 +634,21 @@ class LanceHybridQueryBuilder(LanceQueryBuilder):
     def _vector_leg(self, query_vectors) -> LanceVectorQueryBuilder:
         vq = LanceVectorQueryBuilder(self._table, query_vectors, self._vector_column)
         vq._req.filter = self._req.filter
+        vq._req.prefilter = self._req.prefilter
         vq._req.k = self._req.k
         vq._req.with_row_id = True
-        for opt in ("nprobes", "minimum_nprobes", "maximum_nprobes", "ef", "refine_factor"):
+        for opt in ("nprobes", "minimum_nprobes", "maximum_nprobes", "distance_range", "ef",
+                    "refine_factor", "metric"):
             if opt in self._vq_opts:  # in the reference's order
-                getattr(vq, opt)(self._vq_opts[opt])
+                arg = self._vq_opts[opt]
+                getattr(vq, opt)(*(arg if opt == "distance_range" else (arg,)))
         return vq
 
     def _fts_leg(self, text_query) -> pa.Table:
         """Host only: the BM25 scorers, the prefilter and take_rows (no torch)."""
         fts = LanceFtsQueryBuilder(self._table, text_query, self._fts_columns)
         fts._req.filter = self._req.filter
+        fts._req.prefilter = self._req.prefilter
         fts._req.k = self._req.k
         fts._req.with_row_id = True
         return fts.to_arrow()

@@ -1,9 +1,10 @@
 """Table API: the user-facing handle over one versioned dataset.
 
 Port of the slice of the reference's table.py that the ported paths
-run: add, delete, count_rows, create_index (FLAT, IVF_FLAT, IVF_PQ, the
-HNSW family, and AUTO), create_scalar_index, create_fts_index, tokenize
-and search (vector, full-text and hybrid). The device chosen at
+run: add, delete, count_rows, create_index (FLAT, IVF_FLAT, IVF_SQ,
+IVF_PQ, IVF_RQ, the HNSW family, AUTO, and the token index of a
+multivector column), create_scalar_index, create_fts_index, tokenize and
+search (vector, multivector, full-text and hybrid). The device chosen at
 ``connect()`` travels from the connection to every index build and
 searcher of the table; scalar and full-text indexes live on the host.
 The rest of the reference's surface raises NotImplementedError naming
@@ -34,6 +35,8 @@ from .index import (
     HnswSq,
     IvfFlat,
     IvfPq,
+    IvfRq,
+    IvfSq,
     LabelList,
 )
 from .query import DEFAULT_TOP_K, LanceQueryBuilder
@@ -200,16 +203,20 @@ class Table(NotPortedSurface):
         sample_rate: int = 256,
         max_iterations: int = 50,
         *,
-        config: IvfPq | IvfFlat | Flat | HnswFlat | HnswSq | HnswPq | Auto | None = None,
+        config: IvfPq | IvfFlat | IvfSq | IvfRq | Flat | HnswFlat | HnswSq | HnswPq | Auto
+        | None = None,
         name: str | None = None,
     ) -> None:
-        """Build a FLAT, IVF_FLAT, IVF_PQ or IVF_HNSW_* vector index on the
-        connection's device (reference table.py:2604 create_index). AUTO
-        picks IVF_PQ for a vector column and a BTREE scalar index for a
-        scalar one (reference table.py:764-772). IVF_SQ and IVF_RQ raise,
-        naming their ROADMAP item (A7)."""
+        """Build a FLAT, IVF_FLAT, IVF_SQ, IVF_PQ, IVF_RQ or IVF_HNSW_*
+        vector index on the connection's device (reference table.py:2604
+        create_index). AUTO picks IVF_PQ for a vector column and a BTREE
+        scalar index for a scalar one (reference table.py:764-772). A
+        multivector column gets its token-level FLAT index whatever the
+        index type (reference table.py:779-783)."""
+        from .arrow import is_multivector_type
         from .index.hnsw import HNSW_INDEX_TYPES, build_hnsw_index
-        from .index.vector import PORTED_INDEX_TYPES, _not_ported, build_vector_index
+        from .index.multivector import build_multivector_index
+        from .index.vector import PORTED_INDEX_TYPES, build_vector_index, unsupported_index_type
 
         column = vector_column_name or _vector_column_name(self.schema)
         if (config is not None and config.index_type == "AUTO") or (
@@ -220,7 +227,7 @@ class Table(NotPortedSurface):
                 metric = config.distance_type
             config = None
             field_type = self.schema.field(column).type
-            if is_vector_type(field_type):
+            if is_vector_type(field_type) or is_multivector_type(field_type):
                 index_type = "IVF_PQ"
             elif _supported_btree_type(field_type):
                 self.create_scalar_index(column, index_type="BTREE", replace=replace)
@@ -230,6 +237,12 @@ class Table(NotPortedSurface):
                     f"there are no indices supported for the field {column!r} "
                     f"with the data type {field_type}"
                 )
+        if column in self.schema.names and is_multivector_type(self.schema.field(column).type):
+            meta = build_multivector_index(self._dataset, column, config,
+                                           name=name or f"{column}_idx")
+            self._dataset.add_index(meta, replace=replace)
+            self._invalidate_caches()
+            return
         if config is None:
             it = index_type.upper()
             if it == "IVF_PQ":
@@ -248,6 +261,13 @@ class Table(NotPortedSurface):
                     sample_rate=sample_rate,
                     max_iterations=max_iterations,
                 )
+            elif it in ("IVF_SQ", "IVF_RQ"):
+                config = (IvfSq if it == "IVF_SQ" else IvfRq)(
+                    distance_type=metric,
+                    num_partitions=num_partitions,
+                    sample_rate=sample_rate,
+                    max_iterations=max_iterations,
+                )
             elif it == "FLAT":
                 config = Flat(distance_type=metric)
             elif it in HNSW_INDEX_TYPES:
@@ -257,13 +277,13 @@ class Table(NotPortedSurface):
                     kwargs["num_sub_vectors"] = num_sub_vectors
                 config = cls(**kwargs)
             else:
-                raise _not_ported(it)
+                raise unsupported_index_type(it)
         if config.index_type in HNSW_INDEX_TYPES:
             build = build_hnsw_index
         elif config.index_type in PORTED_INDEX_TYPES:
             build = build_vector_index
         else:
-            raise _not_ported(config.index_type)
+            raise unsupported_index_type(config.index_type)
         meta = build(self._dataset, column, config, name=name or f"{column}_idx",
                      device=self._device)
         self._dataset.add_index(meta, replace=replace)
@@ -422,13 +442,15 @@ class Table(NotPortedSurface):
         query,
         columns=None,
         k: int = DEFAULT_TOP_K,
+        offset: int = 0,
         filter: str | None = None,
+        prefilter: bool = True,
         select=None,
         with_row_id: bool = False,
     ) -> pa.Table:
         from .index.fts import execute_fts_query
 
         return execute_fts_query(
-            self, query, columns=columns, k=k, filter=filter, select=select,
-            with_row_id=with_row_id,
+            self, query, columns=columns, k=k, offset=offset, filter=filter,
+            prefilter=prefilter, select=select, with_row_id=with_row_id,
         )

@@ -19,7 +19,9 @@ sys.modules["jax"] = None          # any import of jax now fails
 sys.modules["lancedb_tpu"] = None  # and so does any import of the reference
 import numpy as np, pyarrow as pa, torch
 import lancedb_tpu_torch
-from lancedb_tpu_torch.index import HnswFlat, IvfFlat, IvfPq
+from lancedb_tpu_torch.index import HnswFlat, IvfFlat, IvfPq, IvfRq, IvfSq
+from lancedb_tpu_torch.index import multivector
+from lancedb_tpu_torch.ops.distance import hamming_distance
 from lancedb_tpu_torch.ops import ivf_pq_adc_grouped_scan
 from lancedb_tpu_torch.ops.probe_kernels import adc_sum, smem_gather
 from lancedb_tpu_torch.probes import ab_adc8, ab_gather_min, common, probe_adc_grouped, probe_pq_real
@@ -52,6 +54,23 @@ for rr in (RRFReranker(), LinearCombinationReranker(), MRRReranker()):
 tbl.create_index(config=HnswFlat(m=8))
 out = tbl.search(x[5] + 0.01).ef(32).limit(3).to_arrow()
 assert out["id"][0].as_py() == 5, out
+for cfg in (IvfSq(num_partitions=4, max_iterations=5), IvfRq(num_partitions=4, max_iterations=5)):
+    tbl.create_index(config=cfg)
+    out = tbl.search(x[3] + 0.01).nprobes(4).refine_factor(5).limit(3).to_arrow()
+    assert out["id"][0].as_py() == 3, out
+out = tbl.search(x[3]).metric("dot").distance_range(upper_bound=0.0).offset(1).limit(3)
+assert out.where("category < 5").postfilter().to_arrow().num_rows <= 3
+assert tbl.search(x[3]).bypass_vector_index().fast_search().limit(1).to_arrow()["id"][0].as_py() == 3
+bits = rng.integers(0, 256, (4, 8), dtype=np.uint8)
+assert hamming_distance(torch.from_numpy(bits), torch.from_numpy(bits)).diagonal().sum() == 0
+mv = lancedb_tpu_torch.connect(sys.argv[1], device="cpu").create_table("mv", pa.table({
+    "id": np.arange(30),
+    "vector": pa.array([x[i : i + 3].tolist() for i in range(30)],
+                       type=pa.list_(pa.list_(pa.float32(), 16))),
+}))
+mv.create_index()
+assert mv.search(x[10:13]).limit(1).to_arrow()["id"][0].as_py() == 10
+assert multivector.maxsim_rescore(x[:2], [x[:2]], device="cpu")[0] > 1.99
 args = probe_adc_grouped.make_inputs(rng, 8, 16, "cpu", p=16, pmax=128, q=8, np_=3)
 assert ivf_pq_adc_grouped_scan(*args).shape == (8, 3, 128)
 assert adc_sum(args[1], args[2], 5, "select").shape == (5, 128)
@@ -108,9 +127,9 @@ def test_unported_surface_names_its_roadmap_item(tmp_path):
     for call, item in (
         (lambda: tbl.update(where="id = 1", values={"id": 2}), "A4"),
         (lambda: tbl.search("some text", query_type="vector"), "A12"),
-        (lambda: tbl.search(x[0]).offset(1), "A4"),
+        (lambda: tbl.search(x[0]).to_pandas(), "A4"),
         (lambda: db.drop_table("t"), "A4"),
-        (lambda: tbl.create_index(index_type="IVF_RQ"), "A7"),
+        (lambda: tbl.search(x[0]).use_lsm(), "A12"),
     ):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             call()

@@ -294,9 +294,9 @@ def test_create_index_by_name_and_refusals(tmp_path):
     assert tbl._dataset.manifest.indices[0].params["metric"] == "cosine"
     tbl.create_index(index_type="IVF_HNSW_SQ")  # ported: test_torch_hnsw.py holds it
     assert tbl._dataset.manifest.indices[0].index_type == "IVF_HNSW_SQ"
-    for index_type, item in (("IVF_SQ", "A7"), ("IVF_RQ", "A7")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            tbl.create_index(index_type=index_type)
+    for index_type in ("IVF_SQ", "IVF_RQ"):  # ported: test_torch_sqrq.py holds them
+        tbl.create_index(index_type=index_type, num_partitions=PARTS, max_iterations=5)
+        assert tbl._dataset.manifest.indices[0].index_type == index_type
     with pytest.raises(ValueError, match="unsupported index_type"):
         tbl.create_index(index_type="NO_SUCH_INDEX")
 

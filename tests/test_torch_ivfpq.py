@@ -166,8 +166,8 @@ def test_edge_cases_match_reference(ref_index, tmp_path):
         lancedb_tpu.connect(str(tmp_path / "r")).create_table("t", TABLE).create_index(
             config=RefIvfPq(num_partitions=PARTS, num_bits=6)
         )
-    with pytest.raises(NotImplementedError, match="A7"):
-        fresh.create_index(index_type="IVF_SQ")
+    fresh.create_index(index_type="IVF_SQ", num_partitions=PARTS)  # test_torch_sqrq.py
+    assert fresh._dataset.manifest.indices[0].index_type == "IVF_SQ"
 
 
 @pytest.fixture(scope="module")
@@ -251,16 +251,26 @@ def test_delta_fragment_matches_reference(delta_index, metric, where, refine):
 
 
 def test_multivector_column_refused(tmp_path):
-    """A multivector column (list<fixed_size_list<float32>[8]>) is refused
-    by search and by create_index with NotImplementedError naming ROADMAP
-    A9, before any other work."""
+    """A multivector column (list<fixed_size_list<float32>[8]>) is no
+    longer refused: an IVF_PQ create_index builds its token-level FLAT
+    index, as the reference's does, and search serves it by MaxSim with
+    the reference's results (tests/test_torch_multivector.py holds the
+    rest)."""
     rng = np.random.default_rng(0)
     rows = [rng.standard_normal((int(rng.integers(2, 5)), 8)).astype(np.float32).tolist()
             for _ in range(20)]
-    tbl = lancedb_tpu_torch.connect(str(tmp_path), device="cpu").create_table("t", pa.table({
+    path = str(tmp_path)
+    tbl = lancedb_tpu_torch.connect(path, device="cpu").create_table("t", pa.table({
         "id": np.arange(20), "vector": pa.array(rows, type=pa.list_(pa.list_(pa.float32(), 8))),
     }))
-    with pytest.raises(NotImplementedError, match="A9"):
-        tbl.search(rng.standard_normal((3, 8)).astype(np.float32)).limit(3).to_arrow()
-    with pytest.raises(NotImplementedError, match="A9"):
-        tbl.create_index(num_partitions=2)
+    q = rng.standard_normal((3, 8)).astype(np.float32)
+    before = tbl.search(q).limit(3).to_arrow()
+    tbl.create_index(num_partitions=2)
+    meta = tbl._dataset.manifest.indices[0]
+    assert meta.index_type == "FLAT" and meta.params["multivector"]
+    got = tbl.search(q).limit(3).to_arrow()
+    want = lancedb_tpu.connect(path).open_table("t").search(q).limit(3).to_arrow()
+    for out in (before, got):
+        np.testing.assert_array_equal(np.asarray(out["id"]), np.asarray(want["id"]))
+        np.testing.assert_allclose(np.asarray(out["_distance"]), np.asarray(want["_distance"]),
+                                   rtol=1e-5, atol=1e-5)

@@ -1,0 +1,269 @@
+"""The vector query options of lancedb_tpu_torch (device="cpu") against
+lancedb_tpu on one shared table and index: distance_range, offset (single
+and batched), postfilter, the metric override to brute force, hamming
+over packed uint8 vectors (with ties), bypass_vector_index, fast_search
+with a delta fragment, and the same options on the full-text and hybrid
+builders.
+
+Every case compares the two packages' results row for row: the same ids
+(and query_index) in the same order, distances to rtol 1e-5 (atol 1e-5
+relative to |q|², the size of the l2 expansion's terms), scores to 1e-6.
+Hamming distances are exact integers in both.
+"""
+
+import numpy as np
+import pyarrow as pa
+import pytest
+
+import lancedb_tpu
+import lancedb_tpu_torch
+from lancedb_tpu.index import IvfPq as RefIvfPq
+
+N, DIM, NQ, PARTS = 2000, 32, 8, 8
+BYTES = 16  # 128-bit binary vectors
+
+
+def _data(seed=5):
+    rng = np.random.default_rng(seed)
+    cent = rng.standard_normal((24, DIM)).astype(np.float32) * 3.0
+    x = (cent[rng.integers(0, 24, N)] + rng.standard_normal((N, DIM))).astype(np.float32)
+    q = (cent[rng.integers(0, 24, NQ)] + rng.standard_normal((NQ, DIM))).astype(np.float32)
+    # few distinct bit patterns, so hamming distances tie often
+    patterns = rng.integers(0, 256, (40, BYTES), dtype=np.uint8)
+    bits = patterns[rng.integers(0, 40, N)]
+    words = np.array(["alpha", "beta", "gamma", "delta", "epsilon", "zeta"])
+    ids = np.arange(N, dtype=np.int64)
+    return pa.table({
+        "id": ids, "category": ids % 10,
+        "text": [" ".join(words[rng.integers(0, 6, 4)]) for _ in range(N)],
+        "vector": pa.FixedSizeListArray.from_arrays(pa.array(x.ravel()), DIM),
+        "bits": pa.FixedSizeListArray.from_arrays(pa.array(bits.ravel(), pa.uint8()), BYTES),
+    }), x, q, patterns
+
+
+TABLE, X, Q, PATTERNS = _data()
+QBITS = np.concatenate([PATTERNS[:3], np.random.default_rng(1).integers(
+    0, 256, (2, BYTES), dtype=np.uint8)])
+DELTA = pa.table({
+    "id": np.arange(N, N + 100), "category": np.arange(N, N + 100) % 10,
+    "text": ["alpha beta"] * 100,
+    "vector": pa.FixedSizeListArray.from_arrays(pa.array((X[:100] + 0.01).ravel()), DIM),
+    "bits": pa.FixedSizeListArray.from_arrays(
+        pa.array(np.tile(PATTERNS[0], 100), pa.uint8()), BYTES),
+})
+
+
+@pytest.fixture(scope="module")
+def tables(tmp_path_factory):
+    """(port, reference) handles on one reference-built table: IVF_PQ on
+    ``vector`` and an FTS index on ``text``; with delta=True, 100 rows
+    added after the builds."""
+    made = {}
+
+    def get(delta=False):
+        if delta not in made:
+            path = str(tmp_path_factory.mktemp(f"opts_{delta}"))
+            t = lancedb_tpu.connect(path).create_table("t", TABLE)
+            t.create_index(config=RefIvfPq(num_partitions=PARTS, num_sub_vectors=8,
+                                           max_iterations=10))
+            t.create_fts_index("text")
+            if delta:
+                t.add(DELTA)
+            made[delta] = path
+        return (lancedb_tpu_torch.connect(made[delta], device="cpu").open_table("t"),
+                lancedb_tpu.connect(made[delta]).open_table("t"))
+
+    return get
+
+
+def _assert_same(got: pa.Table, want: pa.Table, dist_col="_distance", atol=None):
+    assert got.num_rows == want.num_rows
+    assert got.column_names == want.column_names
+    for col in ("id", "query_index"):
+        if col in want.column_names:
+            np.testing.assert_array_equal(np.asarray(got[col]), np.asarray(want[col]), col)
+    if atol is None:
+        atol = 1e-5 * float(np.max((Q.astype(np.float64) ** 2).sum(1)))
+    np.testing.assert_allclose(np.asarray(got[dist_col]), np.asarray(want[dist_col]),
+                               rtol=1e-5, atol=atol)
+
+
+def _both(tables, build, delta=False, **kw):
+    port, ref = tables(delta)
+    got, want = build(port).to_arrow(), build(ref).to_arrow()
+    _assert_same(got, want, **kw)
+    return got
+
+
+def _raw_dists(tables):
+    _, ref = tables()
+    out = ref.search(Q).nprobes(4).limit(20).to_arrow()
+    return np.asarray(out["_distance"])
+
+
+def _cut(tables, frac: int) -> float:
+    """A distance bound near the 1/frac quantile of the raw distances,
+    midway across the widest gap nearby, so that no distance lies within
+    rounding of it."""
+    d = np.unique(_raw_dists(tables))
+    i = len(d) // frac + int(np.argmax(np.diff(d[len(d) // frac : len(d) // frac + 12])))
+    return float((d[i] + d[i + 1]) / 2)
+
+
+VECTOR_CASES = {
+    "offset_single": lambda t: t.search(Q[0]).nprobes(4).limit(10).offset(5),
+    "offset_batched": lambda t: t.search(Q).nprobes(4).limit(6).offset(3),
+    "offset_refined": lambda t: t.search(Q).nprobes(4).refine_factor(5).limit(5).offset(2),
+    "postfilter": lambda t: t.search(Q).nprobes(4).limit(10).where("category < 5").postfilter(),
+    "postfilter_kwarg": lambda t: t.search(Q).nprobes(4).limit(10).where(
+        "category < 5", prefilter=False),
+    "postfilter_offset": lambda t: t.search(Q[1]).nprobes(4).limit(8).offset(2).where(
+        "category >= 3").postfilter(),
+    "metric_dot": lambda t: t.search(Q).metric("dot").limit(10),
+    "distance_type_cosine": lambda t: t.search(Q).distance_type("cosine").limit(10).where(
+        "category = 2"),
+    "metric_same_as_index": lambda t: t.search(Q).nprobes(4).metric("l2").limit(10),
+    "bypass_vector_index": lambda t: t.search(Q).bypass_vector_index().limit(10),
+    "bypass_filtered": lambda t: t.search(Q).bypass_vector_index().where("id < 500").limit(7),
+}
+
+
+@pytest.mark.parametrize("case", sorted(VECTOR_CASES))
+def test_vector_option_matches_reference(tables, case):
+    got = _both(tables, VECTOR_CASES[case])
+    assert got.num_rows > 0
+    if "postfilter" in case:
+        cats = np.asarray(got["category"])
+        assert np.all(cats < 5) if case != "postfilter_offset" else np.all(cats >= 3)
+
+
+def test_offset_is_rows_of_a_longer_search(tables):
+    """offset(5).limit(10) returns rows 5..14 of a limit-15 search, per
+    query of a batch."""
+    port, _ = tables()
+    long = port.search(Q).nprobes(4).limit(15).to_arrow()
+    off = port.search(Q).nprobes(4).limit(10).offset(5).to_arrow()
+    qi_l, qi_o = np.asarray(long["query_index"]), np.asarray(off["query_index"])
+    for i in range(NQ):
+        np.testing.assert_array_equal(np.asarray(off["id"])[qi_o == i],
+                                      np.asarray(long["id"])[qi_l == i][5:15])
+
+
+@pytest.mark.parametrize("bounds", ["lower", "upper", "both", "refined"])
+def test_distance_range_matches_reference(tables, bounds):
+    """distance_range keeps exactly the rows with lo <= d < hi of the
+    unbounded search."""
+    lo, hi = _cut(tables, 4), _cut(tables, 2)
+    lo, hi = {"lower": (lo, None), "upper": (None, hi), "both": (lo, hi),
+              "refined": (lo, hi)}[bounds]
+
+    def build(t):
+        s = t.search(Q).nprobes(4).limit(20)
+        if bounds == "refined":
+            s = s.refine_factor(5)
+        return s.distance_range(lo, hi)
+
+    got = _both(tables, build)
+    unbounded = tables()[0].search(Q).nprobes(4).limit(20)
+    if bounds == "refined":
+        unbounded = unbounded.refine_factor(5)
+    full = unbounded.to_arrow()
+    fd = np.asarray(full["_distance"])
+    keep = np.ones(len(fd), bool)
+    if lo is not None:
+        keep &= fd >= lo
+    if hi is not None:
+        keep &= fd < hi
+    assert 0 < got.num_rows < full.num_rows
+    np.testing.assert_array_equal(np.asarray(got["id"]), np.asarray(full["id"])[keep])
+
+
+@pytest.mark.parametrize("case", ["exact", "filtered", "limit_cuts_ties", "delta"])
+def test_hamming_matches_reference(tables, case):
+    """Brute-force hamming over the packed uint8 column: exact integer
+    distances equal to an XOR popcount, the same ids, ties lower row
+    first."""
+    k = {"limit_cuts_ties": 3}.get(case, 25)
+
+    def build(t):
+        s = t.search(QBITS, vector_column_name="bits").metric("hamming").limit(k)
+        return s.where("category < 4") if case == "filtered" else s
+
+    got = _both(tables, build, delta=case == "delta", atol=0.0)
+    port, _ = tables(case == "delta")
+    qi, ids = np.asarray(got["query_index"]), np.asarray(got["id"])
+    dist = np.asarray(got["_distance"])
+    allbits = np.asarray(port._dataset.to_table(columns=["bits"])["bits"].combine_chunks()
+                         .flatten()).reshape(-1, BYTES)
+    for i in range(len(QBITS)):
+        sel = qi == i
+        want = np.unpackbits(QBITS[i] ^ allbits[ids[sel]], axis=1).sum(1)
+        np.testing.assert_array_equal(dist[sel], want)
+        assert np.all(np.diff(dist[sel]) >= 0)
+        ties = np.diff(dist[sel]) == 0
+        assert np.all(np.diff(ids[sel])[ties] > 0)  # lower row first
+    assert np.any(np.diff(dist) == 0)  # the data ties
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_fast_search_with_delta_matches_reference(tables, fast):
+    """Rows added after the build are served by the brute force unless
+    fast_search skips them."""
+    def build(t):
+        s = t.search(Q[:4] + 0.01).nprobes(4).limit(10)
+        return s.fast_search() if fast else s
+
+    got = _both(tables, build, delta=True)
+    ids = np.asarray(got["id"])
+    assert np.any(ids >= N) != fast
+
+
+FTS_CASES = {
+    "offset": lambda t: t.search("gamma delta", query_type="fts").limit(10).offset(4),
+    "postfilter": lambda t: t.search("gamma", query_type="fts").limit(10).where(
+        "category < 5").postfilter(),
+    "prefilter": lambda t: t.search("gamma", query_type="fts").limit(10).where("category < 5"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FTS_CASES))
+def test_fts_option_matches_reference(tables, case):
+    got = _both(tables, FTS_CASES[case], dist_col="_score", atol=1e-6)
+    assert got.num_rows > 0
+
+
+@pytest.mark.parametrize("case", ["distance_range", "metric", "postfilter"])
+def test_hybrid_option_matches_reference(tables, case):
+    """The hybrid's vector leg takes distance_range and metric, and both
+    legs the postfilter; RRF ranks must agree."""
+    hi = _cut(tables, 8)
+
+    def build(t):
+        s = t.search((Q[2], "gamma delta"), query_type="hybrid").nprobes(4).limit(10)
+        if case == "distance_range":
+            s = s.distance_range(upper_bound=hi)
+        elif case == "metric":
+            s = s.metric("dot")
+        else:
+            s = s.where("category < 5").postfilter()
+        return s.with_row_id()
+
+    port, ref = tables()
+    got, want = build(port).to_arrow(), build(ref).to_arrow()
+    assert got.num_rows == want.num_rows > 0
+    np.testing.assert_array_equal(np.asarray(got["_rowid"]), np.asarray(want["_rowid"]))
+    np.testing.assert_allclose(np.asarray(got["_relevance_score"]),
+                               np.asarray(want["_relevance_score"]), rtol=1e-6)
+
+
+def test_unported_surface_still_names_a4(tables):
+    port, _ = tables()
+    for call in (
+        lambda: port.update(where="id = 1", values={"id": 2}),
+        lambda: port.merge_insert("id"),
+        lambda: port.search(None),
+        lambda: port.search(Q[0]).to_pandas(),
+        lambda: port.to_pandas(),
+    ):
+        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+            call()
