@@ -5,7 +5,8 @@
     python3 chip_smoke.py --phase kernels # build and check the kernels only
     python3 chip_smoke.py --phase hnsw    # path e alone (or --phase large_d: path d;
                                           # --phase fts: path f; --phase
-                                          # vector_family: path g)
+                                          # vector_family: path g; --phase
+                                          # lifecycle: path h)
     python3 chip_smoke.py --out smoke.json # also write the full summary as JSON
 
 Phases:
@@ -117,6 +118,25 @@ Phases:
      on category, and again: the same results, every hit category 3, the
      index's allowed set equal to the scan's, and the prefilter's ms by
      each way; B1 checked at the batched hybrid's shapes.
+  7. path h, the table lifecycle: its own 1M x 128 table (make_clustered,
+     seed 0, id and category = id % 10) and IVF_PQ 1024 partitions 4-bit
+     x32 (build seconds, peak memory), then merge_insert of 10,000 rows
+     (5,000 existing ids with new vectors and categories, 5,000 new ids:
+     each merged vector its own top-1, no id twice, no superseded row),
+     update(category = 3 -> 42) with a filtered search at recall@10 >=
+     0.99 of exact filtered truth, delete(id < 1000) (no deleted id
+     returned), explain_plan / analyze_plan, the batch's ms before and
+     after the mutations, compact_files and the search over the fully
+     stale index (a brute force of the table, recall >= 0.99), optimize
+     (seconds, reindex seconds, peak memory; then no unindexed row and
+     path a's bars, 0.7075 raw and 0.99 refined), checkout of the version
+     before compaction (the same ids, distances within 1e-6) with device
+     memory held over 3 round trips, a tag and restore(v), plain scans
+     against pyarrow (filter, to_batches(65536), order_by / offset /
+     limit), a second connection at read_consistency_interval=0 and the
+     same search through connect_async. Every truth comes from a host
+     model of the rows and exact f32 top-k on the card; B1's launches are
+     counted per stage and must be > 0 in each.
 
 Prints, on lines before the last, the card's name and power limit, a
 ``kernels:`` line and one JSON object ``{"kernels": [...]}``; the last
@@ -1337,12 +1357,14 @@ def kernel_phases(phase: str, card: str) -> tuple[dict, list[dict]]:
         summary["probes"] = probes_phase(card)
         summary["large_d"], large_d_kernels = large_d_path(card)
         summary["fts"], fts_kernels = fts_phase(card)
+        summary["lifecycle"], lifecycle_kernels = lifecycle_phase(card)
         counts: dict = {}  # launches on the main path, per kernel
         for r in main_kernels:
             counts[r["counter"]] = counts.get(r["counter"], 0) + r["launches"]
         for r in grouped + flat_line:
             r["launches"] = counts[r["counter"]]
-        kernels = main_kernels + large_d_kernels + fts_kernels + grouped + flat_line
+        kernels = (main_kernels + large_d_kernels + fts_kernels + lifecycle_kernels + grouped
+                   + flat_line)
     kernels += probe_kernels
     return summary, kernels
 
@@ -2098,12 +2120,347 @@ def vector_family_only(card: str) -> tuple[dict, list[dict]]:
     return results, [krec]
 
 
+# ---------------------------------------------------------------- path h
+
+# path a's 4-bit x32 configuration and bars, on a table of path h's own
+LC_ROWS, LC_DIM, LC_QUERIES, LC_UPSERT, LC_PARTITIONS = 1_000_000, 128, 256, 5_000, 1024
+LC_RAW_BAR, LC_REFINED_BAR = RAW_RECALL_BARS[4] - 0.03, 0.99
+
+
+class LiveRows:
+    """What the table must hold, kept beside it on the host: each id's
+    vector, category and whether it is live."""
+
+    def __init__(self, x: np.ndarray, extra: int):
+        n = len(x)
+        self.vec = np.concatenate([x, np.zeros((extra, x.shape[1]), np.float32)])
+        self.cat = np.concatenate([np.arange(n) % 10, np.full(extra, -1)]).astype(np.int64)
+        self.alive = np.arange(n + extra) < n
+
+    def upsert(self, ids: np.ndarray, vecs: np.ndarray, cats: np.ndarray) -> None:
+        self.vec[ids], self.cat[ids], self.alive[ids] = vecs, cats, True
+
+    def ids(self) -> np.ndarray:
+        return np.nonzero(self.alive)[0]
+
+    def truth(self, q: np.ndarray, k: int = 10, category: int | None = None) -> np.ndarray:
+        """Exact f32 top-k ids over the live rows (of one category), on the card."""
+        import torch
+
+        ids = self.ids() if category is None else np.nonzero(self.alive & (self.cat == category))[0]
+        idx, _ = exact_topk(torch.from_numpy(self.vec[ids]).cuda(), q, k, "l2")
+        torch.cuda.empty_cache()
+        return ids[idx]
+
+
+def lc_rows(ids: np.ndarray, vecs: np.ndarray, cats: np.ndarray):
+    import pyarrow as pa
+
+    return pa.table({"id": ids.astype(np.int64), "category": cats.astype(np.int64),
+                     "vector": pa.FixedSizeListArray.from_arrays(pa.array(vecs.ravel()),
+                                                                 vecs.shape[1])})
+
+
+def lc_search(tbl, q: np.ndarray, reps: int = 1, rf=None, where=None):
+    """A batch search at nprobes 20, k 10, with ids, categories and row
+    addresses: (result, median host ms of ``reps`` calls)."""
+    def run():
+        s = tbl.search(q).nprobes(20).limit(10).select(["id", "category"]).with_row_id(True)
+        if rf:
+            s = s.refine_factor(rf)
+        if where:
+            s = s.where(where)
+        return s.to_arrow()
+
+    out, secs = timed(run, reps)
+    return out, secs * 1e3
+
+
+def lc_check_hits(label: str, out, nq: int, dead_ids=None, superseded=None) -> np.ndarray:
+    """Raise if a query holds an id twice, a dead id or a superseded row
+    address; return each query's top-1 id (-1 where it has no hit)."""
+    qi = np.asarray(out.column("query_index")).astype(np.int64)
+    ids = np.asarray(out.column("id"))
+    if len(np.unique(qi * (1 << 32) + ids)) != len(ids):
+        raise AssertionError(f"{label}: a query returned an id twice")
+    if dead_ids is not None and np.isin(ids, dead_ids).any():
+        raise AssertionError(f"{label}: a deleted id was returned: "
+                             f"{ids[np.isin(ids, dead_ids)][:5]}")
+    if superseded is not None:
+        rids = np.asarray(out.column("_rowid"))
+        if np.isin(rids, superseded).any():
+            raise AssertionError(f"{label}: a superseded row was returned")
+    top1 = np.full(nq, -1, np.int64)
+    first = np.r_[0, np.nonzero(np.diff(qi))[0] + 1] if len(qi) else np.zeros(0, np.int64)
+    top1[qi[first]] = ids[first]
+    return top1
+
+
+def lc_recall(label: str, out, truth: np.ndarray, bar: float) -> float:
+    got = recall(hit_ids(out, len(truth)), truth)
+    if got < bar:
+        raise AssertionError(f"{label}: recall@10 {got} < {bar}")
+    return got
+
+
+def lifecycle_path(db, card: str) -> tuple[dict, dict]:
+    """Path h: the table lifecycle over a 1M x 128 IVF_PQ 4-bit x32 table
+    (make_clustered, seed 0, id and category = id % 10), every check
+    against a host model of the rows (LiveRows) and exact truth on the
+    card. Returns (summary, B1's record)."""
+    import asyncio
+
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import torch
+
+    import lancedb_tpu_torch
+    from lancedb_tpu_torch.index import IvfPq
+    from lancedb_tpu_torch.ops import adc
+    from lancedb_tpu_torch.probes.common import make_clustered
+    from lancedb_tpu_torch.session import _searcher_nbytes
+
+    n, nq = LC_ROWS, LC_QUERIES
+    x, queries = make_clustered(np.random.default_rng(0), n, LC_DIM, n_queries=nq)
+    live = LiveRows(x, 2 * LC_UPSERT + 1)
+    rec: dict = {"card": card, "rows": n, "dim": LC_DIM, "queries": nq}
+    b1: dict = {}
+
+    def launched(stage: str) -> None:
+        """B1's count since the last stage; raise if it did not launch."""
+        total = adc.launch_counts["ivf_pq_adc_scan"]
+        b1[stage] = total - sum(b1.values())
+        if b1[stage] <= 0:
+            raise AssertionError(f"lifecycle {stage}: B1 was not launched")
+
+    adc.reset_launch_counts()
+    # 1. the table and its index
+    t0 = time.perf_counter()
+    tbl = db.create_table("lifecycle", lc_rows(np.arange(n), x, np.arange(n) % 10))
+    rec["create_table_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    (_, rec["build_s"]) = timed(lambda: tbl.create_index(
+        config=IvfPq(num_partitions=LC_PARTITIONS, num_sub_vectors=32, num_bits=4)))
+    rec["build_peak_mem_bytes"] = int(torch.cuda.max_memory_allocated())
+    lc_search(tbl, queries)  # loads the searcher
+    out, rec["search_ms_before_mutations"] = lc_search(tbl, queries, reps=3)
+    rec["recall_before"] = recall(hit_ids(out, nq), live.truth(queries))
+    launched("build_and_search")
+    print(f"[lifecycle] built ({card}): {json.dumps(rec)}", flush=True)
+
+    # 2. merge_insert: 5,000 existing ids with new vectors and categories,
+    # 5,000 new ids; the rows they supersede are fragment 0's at offset id
+    rng = np.random.default_rng(90)
+    matched = np.sort(rng.choice(np.arange(1000, n), LC_UPSERT, replace=False))
+    up_ids = np.concatenate([matched, np.arange(n, n + LC_UPSERT)])
+    up_vecs = (x[rng.integers(0, n, len(up_ids))] + 0.1 * x.std(axis=0)
+               * rng.standard_normal((len(up_ids), LC_DIM))).astype(np.float32)
+    up_cats = rng.integers(0, 10, len(up_ids))
+    if not np.array_equal(np.asarray(tbl.take_row_ids(matched[:8])["id"]), matched[:8]):
+        raise AssertionError("lifecycle: fragment 0 does not hold id i at offset i")
+    superseded = matched.astype(np.uint64)
+    stats, secs = timed(lambda: tbl.merge_insert("id").when_matched_update_all()
+                        .when_not_matched_insert_all().execute(lc_rows(up_ids, up_vecs, up_cats)))
+    rec["merge_insert_s"], rec["merge_insert_stats"] = secs, stats
+    live.upsert(up_ids, up_vecs, up_cats)
+    if tbl.count_rows() != n + LC_UPSERT or stats["num_updated_rows"] != LC_UPSERT:
+        raise AssertionError(f"lifecycle merge_insert: {tbl.count_rows()} rows, {stats}")
+    out, rec["merged_search_ms"] = lc_search(tbl, up_vecs)
+    top1 = lc_check_hits("merged vectors", out, len(up_ids), superseded=superseded)
+    rec["merged_top1"] = float(np.mean(top1 == up_ids))
+    if rec["merged_top1"] != 1.0:
+        bad = np.nonzero(top1 != up_ids)[0][:5]
+        raise AssertionError(f"lifecycle: merged vectors not found first: {up_ids[bad]} "
+                             f"gave {top1[bad]}")
+    out, _ = lc_search(tbl, queries)
+    lc_check_hits("after merge_insert", out, nq, superseded=superseded)
+    launched("merge_insert")
+
+    # 3. update: category 3 → 42 (about 100k rows rewritten)
+    stats, rec["update_s"] = timed(lambda: tbl.update(where="category = 3",
+                                                      values={"category": 42}))
+    rec["update_rows"] = stats["rows_updated"]
+    live.cat[live.cat == 3] = 42
+    if rec["update_rows"] != int(np.sum(live.alive & (live.cat == 42))):
+        raise AssertionError(f"lifecycle update: {stats}")
+    out, rec["filtered_search_ms"] = lc_search(tbl, queries, where="category = 42")
+    lc_check_hits("category = 42", out, nq, superseded=superseded)
+    if not np.all(np.asarray(out.column("category")) == 42):
+        raise AssertionError("lifecycle: a filtered hit is not category 42")
+    rec["filtered_recall"] = lc_recall("category = 42", out, live.truth(queries, category=42),
+                                       0.99)
+    launched("update")
+
+    # 4. delete id < 1000; the queries include 256 deleted rows
+    rec["delete_s"] = timed(lambda: tbl.delete("id < 1000"))[1]
+    live.alive[:1000] = False
+    probe_q = np.concatenate([queries, x[:256]])
+    out, _ = lc_search(tbl, probe_q)
+    lc_check_hits("after delete", out, len(probe_q), dead_ids=np.arange(1000),
+                  superseded=superseded)
+    launched("delete")
+    if tbl.count_rows() != len(live.ids()):
+        raise AssertionError(f"lifecycle: {tbl.count_rows()} rows, {len(live.ids())} expected")
+
+    # 5. the plan: the delta fragments' brute force, timed per operator
+    plan = tbl.search(queries).nprobes(20).where("category < 5").limit(10).explain_plan()
+    if "KnnFlatExec: delta fragments" not in plan:
+        raise AssertionError(f"lifecycle: no delta scan in the plan:\n{plan}")
+    analyzed = tbl.search(queries).nprobes(20).where("category < 5").limit(10).analyze_plan()
+    print(f"[lifecycle] analyze_plan ({card}):\n{analyzed}", flush=True)
+    for op in ("ANNSubIndexExec", "KnnFlatExec", "PrefilterExec", "TakeExec"):
+        line = next(ln for ln in analyzed.splitlines() if op in ln)
+        if "elapsed_compute=" not in line:
+            raise AssertionError(f"lifecycle: {op} was not timed: {line}")
+    rec["analyze_plan"] = analyzed
+    launched("analyze_plan")
+
+    # 6. the delta's cost; then compaction leaves the index over no live
+    # fragment, and a search brute-forces the whole table
+    version_v, rows_v = tbl.version, tbl.count_rows()
+    saved, rec["search_ms_after_mutations"] = lc_search(tbl, queries, reps=3)
+    rec["compact_files_s"] = timed(tbl.compact_files)[1]
+    lc_search(tbl, queries)
+    out, rec["search_ms_stale_index"] = lc_search(tbl, queries, reps=3)
+    truth = live.truth(queries)
+    rec["stale_index_recall"] = lc_recall("stale index (brute force)", out, truth, 0.99)
+    launched("compact_files")
+
+    # 7. optimize: the reindex on the card
+    torch.cuda.reset_peak_memory_stats()
+    res, rec["optimize_s"] = timed(tbl.optimize)
+    rec["optimize_peak_mem_bytes"] = int(torch.cuda.max_memory_allocated())
+    stats = tbl.index_stats("vector_idx")
+    rec["optimize_reindex_s"] = stats["params"]["build_seconds"]
+    rec["optimize_result"] = res
+    if stats["num_unindexed_rows"] != 0 or res["indices_rebuilt"] != 1:
+        raise AssertionError(f"lifecycle optimize: {res}, {stats}")
+    lc_search(tbl, queries)
+    out, rec["search_ms_after_optimize"] = lc_search(tbl, queries, reps=3)
+    rec["raw_recall"] = lc_recall("after optimize, raw", out, truth, LC_RAW_BAR)
+    out, _ = lc_search(tbl, queries, rf=10)
+    rec["refined_recall"] = lc_recall("after optimize, refined", out, truth, LC_REFINED_BAR)
+    latest_ids = hit_ids(out, nq)
+    launched("optimize")
+
+    # 8. time travel: version v (before compaction) with its own index
+    def same_as_saved(label: str) -> None:
+        got, _ = lc_search(tbl, queries)
+        if not got.column("id").equals(saved.column("id")):
+            raise AssertionError(f"{label}: ids differ from version {version_v}'s")
+        diff = np.max(np.abs(np.asarray(got.column("_distance"))
+                             - np.asarray(saved.column("_distance"))))
+        if diff > 1e-6:
+            raise AssertionError(f"{label}: distances differ by {diff}")
+
+    tbl.checkout(version_v)
+    same_as_saved("checkout(v)")
+    tbl.checkout_latest()
+    lc_search(tbl, queries, rf=10)  # the latest searcher with its refine table
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    ix = next(ix for ix in tbl._dataset.manifest.indices if ix.index_type == "IVF_PQ")
+    searcher_bytes = _searcher_nbytes(tbl._get_searcher(ix))
+    for trip in range(3):
+        tbl.checkout(version_v)
+        same_as_saved(f"round trip {trip}")
+        tbl.checkout_latest()
+        if not np.array_equal(hit_ids(lc_search(tbl, queries, rf=10)[0], nq), latest_ids):
+            raise AssertionError(f"round trip {trip}: the latest version's hits changed")
+    torch.cuda.synchronize()
+    rec["memory_allocated"] = {"first": mem0, "after_3_round_trips": torch.cuda.memory_allocated(),
+                               "searcher_bytes": searcher_bytes}
+    if rec["memory_allocated"]["after_3_round_trips"] - mem0 > searcher_bytes:
+        raise AssertionError(f"lifecycle: device memory grew over checkouts: "
+                             f"{rec['memory_allocated']}")
+    tbl.tags.create("before_optimize", version_v)
+    tbl.checkout("before_optimize")
+    if tbl.count_rows() != rows_v:
+        raise AssertionError("checkout(tag): the row count is not version v's")
+    tbl.checkout_latest()
+    tbl.restore(version_v)
+    if tbl.count_rows() != rows_v or tbl.list_versions()[-1]["metadata"]["op"] != "restore":
+        raise AssertionError("restore(v): not version v's rows")
+    same_as_saved("restore(v)")
+    launched("time_travel")
+
+    # 9. plain scans, held to pyarrow over to_arrow()
+    full, rec["to_arrow_s"] = timed(tbl.to_arrow)
+    got_model = full.select(["id", "category"]).sort_by("id")
+    if not (np.array_equal(np.asarray(got_model["id"]), live.ids())
+            and np.array_equal(np.asarray(got_model["category"]), live.cat[live.ids()])):
+        raise AssertionError("lifecycle: to_arrow() is not the rows the table must hold")
+    scan, rec["filtered_scan_s"] = timed(
+        lambda: tbl.query().where("category = 42").select(["id", "category"]).to_arrow())
+    want = full.filter(pc.equal(full["category"], 42)).select(["id", "category"])
+    if not scan.equals(want):
+        raise AssertionError("lifecycle: the filtered scan is not pyarrow's filter")
+    batches, secs = timed(lambda: list(tbl.query().to_batches(65536)))
+    if max(b.num_rows for b in batches) > 65536 or not pa.Table.from_batches(batches).equals(full):
+        raise AssertionError("lifecycle: to_batches(65536) is not to_arrow()")
+    rec["to_batches_rows_per_s"] = full.num_rows / secs
+    ordered = tbl.query().where("category = 42").order_by(("id", "desc")).offset(100).limit(1000)
+    want = want.sort_by([("id", "descending")]).slice(100, 1000)
+    if not ordered.select(["id", "category"]).to_arrow().equals(want):
+        raise AssertionError("lifecycle: order_by/offset/limit is not pyarrow's sort")
+
+    # 10. a second connection with read_consistency_interval=0
+    db2 = lancedb_tpu_torch.connect(db.uri, db.device, read_consistency_interval=0)
+    other = db2.open_table("lifecycle")
+    before = other.count_rows()
+    pair_ids = np.array([live.ids()[-1], n + LC_UPSERT], np.int64)
+    pair_vecs = (queries[:2] + 0.001).astype(np.float32)
+    tbl.merge_insert("id").when_matched_update_all().when_not_matched_insert_all().execute(
+        lc_rows(pair_ids, pair_vecs, np.array([7, 7])))
+    live.upsert(pair_ids, pair_vecs, np.array([7, 7]))
+    out, _ = lc_search(other, pair_vecs)
+    top1 = lc_check_hits("second connection", out, 2)
+    if other.count_rows() != before + 1 or not np.array_equal(top1, pair_ids):
+        raise AssertionError(f"second connection: {other.count_rows()} rows after {before}, "
+                             f"top-1 {top1} for {pair_ids}")
+    db2.close()
+    launched("second_connection")
+
+    # 11. async: the same search through connect_async
+    async def async_search():
+        at = await (await lancedb_tpu_torch.connect_async(db.uri, db.device)).open_table(
+            "lifecycle")
+        return await at.search(queries).nprobes(20).limit(10).select(["id"]).to_arrow()
+
+    got = asyncio.run(asyncio.wait_for(async_search(), 120))
+    want = tbl.search(queries).nprobes(20).limit(10).select(["id"]).to_arrow()
+    if not got.column("id").equals(want.column("id")):
+        raise AssertionError("lifecycle: the async search's ids are not the sync search's")
+    launched("async")
+
+    rec["b1_launches"] = b1
+    rec["b1_launches_total"] = adc.launch_counts["ivf_pq_adc_scan"]
+    ix = next(ix for ix in tbl._dataset.manifest.indices if ix.index_type == "IVF_PQ")
+    krec = check_adc(searcher_adc_args(tbl._get_searcher(ix), queries),
+                     "lifecycle (IVF_PQ 4-bit x32 after the mutations)")
+    krec["launches"] = rec["b1_launches_total"]
+    print(f"[lifecycle] ({card}): {json.dumps({k: v for k, v in rec.items() if k != 'analyze_plan'})}",
+          flush=True)
+    return rec, krec
+
+
+def lifecycle_phase(card: str) -> tuple[dict, list[dict]]:
+    """Path h on a database of its own."""
+    import lancedb_tpu_torch
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lc_") as tmp:
+        results, krec = lifecycle_path(lancedb_tpu_torch.connect(tmp), card)
+    print(f"card: {card}", flush=True)
+    return results, [krec]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase",
-                    choices=("all", "kernels", "large_d", "hnsw", "fts", "vector_family"),
+                    choices=("all", "kernels", "large_d", "hnsw", "fts", "vector_family",
+                             "lifecycle"),
                     default="all", help="kernels: the kernel checks only; large_d, hnsw, fts, "
-                    "vector_family: that path only")
+                    "vector_family, lifecycle: that path only")
     ap.add_argument("--out", help="also write the full summary as JSON to this file")
     a = ap.parse_args()
     if not (REPO / "lancedb_tpu_torch" / "csrc").is_dir():
@@ -2134,9 +2491,11 @@ def main() -> int:
 
     summary: dict = {}
     kernels: list[dict] = []
-    if a.phase in ("large_d", "hnsw", "fts", "vector_family"):
+    if a.phase in ("large_d", "hnsw", "fts", "vector_family", "lifecycle"):
         if a.phase == "large_d":
             summary["large_d"], kernels = large_d_path(card)
+        elif a.phase == "lifecycle":
+            summary["lifecycle"], kernels = lifecycle_phase(card)
         elif a.phase == "fts":
             summary["fts"], kernels = fts_phase(card)
         elif a.phase == "vector_family":

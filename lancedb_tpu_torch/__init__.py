@@ -17,13 +17,21 @@ Same surface and on-disk format as ``lancedb_tpu``:
     tbl.create_fts_index("text"); tbl.create_scalar_index("category", index_type="BITMAP")
     tbl.search("quick fox", query_type="fts").limit(10).to_arrow()
     tbl.search((q, "quick fox"), query_type="hybrid").rerank(RRFReranker()).to_arrow()
+    tbl.merge_insert("id").when_matched_update_all().when_not_matched_insert_all().execute(rows)
+    tbl.update(where="category = 3", values={"category": 42}); tbl.delete("id < 10")
+    tbl.optimize()  # compaction, then the stale indexes rebuilt on the table's device
+    tbl.checkout(v); tbl.checkout_latest(); tbl.tags.create("t", v); tbl.restore(v)
+    tbl.query().where("category = 42").order_by("id").limit(5).to_arrow()
+    tbl.search(q).analyze_plan()
+    db = await lancedb_tpu_torch.connect_async("/path/to/db")
 
 The package imports neither JAX nor ``lancedb_tpu``; CUDA kernels build
 from ``csrc/`` with nvcc on first use, and the host library of the
 full-text index from ``native/lancedb_native.cpp`` with g++.
 """
 
-from .db import LanceDBConnection, connect
+from .aio import AsyncConnection, AsyncTable, connect_async
+from .db import LanceDBConnection, connect, deserialize_conn
 from .errors import (
     IndexNotFoundError,
     InvalidInputError,
@@ -47,14 +55,53 @@ from .index import (
     IvfSq,
     LabelList,
 )
+from .query import (
+    DEFAULT_TOP_K,
+    ColumnOrdering,
+    LanceEmptyQueryBuilder,
+    LanceFtsQueryBuilder,
+    LanceHybridQueryBuilder,
+    LanceQueryBuilder,
+    LanceVectorQueryBuilder,
+)
+from .query_fts import (
+    BooleanQuery,
+    BoostQuery,
+    FullTextQueryType,
+    MatchQuery,
+    MultiMatchQuery,
+    Occur,
+    Operator,
+    PhraseQuery,
+)
 from .session import Session
-from .table import Table
+from .table import MergeInsertBuilder, Table
 
 __version__ = "0.1.0"
 
 __all__ = [
     "connect",
+    "connect_async",
+    "deserialize_conn",
     "LanceDBConnection",
+    "AsyncConnection",
+    "AsyncTable",
+    "ColumnOrdering",
+    "DEFAULT_TOP_K",
+    "LanceEmptyQueryBuilder",
+    "LanceFtsQueryBuilder",
+    "LanceHybridQueryBuilder",
+    "LanceQueryBuilder",
+    "LanceVectorQueryBuilder",
+    "MergeInsertBuilder",
+    "BooleanQuery",
+    "BoostQuery",
+    "FullTextQueryType",
+    "MatchQuery",
+    "MultiMatchQuery",
+    "Occur",
+    "Operator",
+    "PhraseQuery",
     "Table",
     "Session",
     "Auto",

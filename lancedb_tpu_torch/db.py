@@ -1,16 +1,20 @@
-"""Database connections: URI routing and table CRUD.
+"""Database connections: URI routing, table CRUD and connection management.
 
 Port of the local part of the reference's db.py: a database is a
 directory of ``<name>.lance`` table datasets on an object store (local
 paths and ``memory://``). The connection owns the device that every
 table, index build and searcher under it uses: ``connect(uri)`` means
-the card, and a caller that wants the CPU passes ``device="cpu"``.
-Remote and namespace connections, drop/rename/clone and async
-connections wait for later slices (ROADMAP A4, A12).
+the card, and a caller that wants the CPU passes ``device="cpu"``. It
+also owns the read-consistency interval (with a background refresher
+when the interval is positive), the session's searcher cache and the
+registry of background jobs. ``connect_async`` (in ``aio.py``) wraps a
+connection. Remote and namespace connections and SQL wait for a later
+slice (ROADMAP A12).
 """
 
 from __future__ import annotations
 
+import json
 from typing import Any
 
 import pyarrow as pa
@@ -19,8 +23,9 @@ from ._surface import NotPortedSurface
 from .arrow import sanitize_vectors, to_arrow_table
 from .errors import InvalidInputError, TableAlreadyExistsError, TableNotFoundError
 from .io.object_store import resolve_uri
+from .jobs import JobRegistry
 from .ops.util import resolve_device
-from .session import Session
+from .session import BackgroundRefresher, Session
 from .storage.dataset import Dataset
 from .storage.manifest import VERSIONS_DIR
 from .table import Table
@@ -29,34 +34,68 @@ TABLE_SUFFIX = ".lance"
 
 
 class LanceDBConnection(NotPortedSurface):
-    _NOT_PORTED = {
-        **dict.fromkeys(
-            ("drop_table", "rename_table", "clone_table", "drop_all_tables", "drop_database",
-             "table_exists", "list_tables", "serialize", "close", "list_jobs", "get_job",
-             "cancel_job"),
-            "A4",
-        ),
-        **dict.fromkeys(
-            ("sql", "namespace_client", "create_namespace", "drop_namespace",
-             "list_namespaces", "namespace_exists", "describe_namespace"),
-            "A12",
-        ),
-    }
+    _NOT_PORTED = dict.fromkeys(
+        ("sql", "namespace_client", "create_namespace", "drop_namespace", "list_namespaces",
+         "namespace_exists", "describe_namespace"),
+        "A12",
+    )
 
-    def __init__(self, uri: str, *, device=None, storage_options: dict | None = None,
-                 session: Session | None = None):
+    def __init__(self, uri: str, *, device=None, read_consistency_interval: float | None = None,
+                 storage_options: dict | None = None, session: Session | None = None,
+                 storage_options_provider=None):
         self.uri = uri
         self.device = resolve_device(device)
+        self.read_consistency_interval = read_consistency_interval
+        self.storage_options = storage_options or {}
+        # a callable returning fresh storage options (credential vending)
+        self.storage_options_provider = storage_options_provider
         self.session = session or Session()
+        self._refresher = (
+            BackgroundRefresher(read_consistency_interval)
+            if read_consistency_interval and read_consistency_interval > 0 else None
+        )
         self._store, self._root = resolve_uri(uri, storage_options)
+        self._jobs = JobRegistry()
+        self._closed = False
 
     def __repr__(self) -> str:
         return f"LanceDBConnection(uri={self.uri!r}, device={str(self.device)!r})"
+
+    # ------------------------------------------------- container, lifecycle
+
+    def __contains__(self, name: str) -> bool:
+        return self.table_exists(name)
+
+    def __getitem__(self, name: str) -> Table:
+        return self.open_table(name)
+
+    def __len__(self) -> int:
+        return len(self.table_names())
+
+    def __enter__(self) -> "LanceDBConnection":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
+        """Stop the background refresher; the connection is closed after."""
+        if self._refresher is not None:
+            self._refresher.stop()
+        self._closed = True
+
+    def is_open(self) -> bool:
+        return not self._closed
+
+    # ----------------------------------------------------------- tables
 
     def _table_root(self, name: str) -> str:
         if "/" in name or name.startswith("."):
             raise InvalidInputError(f"invalid table name {name!r}")
         return f"{self._root}/{name}{TABLE_SUFFIX}"
+
+    def table_exists(self, name: str) -> bool:
+        return self._store.exists(f"{self._table_root(name)}/{VERSIONS_DIR}")
 
     def table_names(self, page_token: str | None = None, limit: int | None = None) -> list[str]:
         names = []
@@ -71,6 +110,9 @@ class LanceDBConnection(NotPortedSurface):
             names = names[:limit]
         return names
 
+    def list_tables(self, **kw) -> list[str]:
+        return self.table_names(**kw)
+
     def create_table(
         self,
         name: str,
@@ -82,8 +124,8 @@ class LanceDBConnection(NotPortedSurface):
         fill_value: float = 0.0,
     ) -> Table:
         """Create a table from data and/or a pyarrow schema. Embedding
-        functions, pydantic models and blob columns wait for later
-        slices (ROADMAP A12)."""
+        functions, pydantic models and blob columns wait for a later
+        slice (ROADMAP A12)."""
         if mode not in ("create", "overwrite"):
             raise InvalidInputError(f"unknown mode {mode!r}")
         if mode == "create" and exist_ok:
@@ -105,25 +147,118 @@ class LanceDBConnection(NotPortedSurface):
             raise TableAlreadyExistsError(name) from None
         return Table(self, name, ds)
 
-    def open_table(self, name: str, *, version: int | None = None) -> Table:
+    def open_table(self, name: str, *, version: int | None = None, tag: str | None = None,
+                   branch: str | None = None) -> Table:
         root = self._table_root(name)
         if not self._store.exists(f"{root}/{VERSIONS_DIR}"):
             raise TableNotFoundError(name)
-        return Table(self, name, Dataset.open(self._store, root, version=version))
+        return Table(self, name, Dataset.open(self._store, root, version=version, tag=tag,
+                                              branch=branch))
+
+    def drop_table(self, name: str, ignore_missing: bool = False) -> None:
+        root = self._table_root(name)
+        if not self._store.exists(f"{root}/{VERSIONS_DIR}"):
+            if ignore_missing:
+                return
+            raise TableNotFoundError(name)
+        self.session.invalidate(root)
+        self._store.delete(root)
+
+    def drop_all_tables(self) -> None:
+        for n in self.table_names():
+            self.drop_table(n)
+
+    drop_database = drop_all_tables
+
+    def rename_table(self, old: str, new: str) -> None:
+        old_root, new_root = self._table_root(old), self._table_root(new)
+        if not self._store.exists(f"{old_root}/{VERSIONS_DIR}"):
+            raise TableNotFoundError(old)
+        if self._store.exists(f"{new_root}/{VERSIONS_DIR}"):
+            raise TableAlreadyExistsError(new)
+        self.session.invalidate(old_root)
+        self._store.rename_prefix(old_root, new_root)
+
+    def clone_table(self, source: str, target: str, *, version: int | None = None,
+                    tag: str | None = None) -> Table:
+        """Copy a table, at a version or tag if given, into a new table
+        (reference CloneTableBuilder, connection.rs:119-374)."""
+        src = self.open_table(source)
+        if tag is not None:
+            src.checkout(tag)
+        elif version is not None:
+            src.checkout(version)
+        data = src.to_arrow()
+        return self.create_table(target, data if data.num_rows else None, schema=src.schema)
+
+    # ------------------------------------------------------------- jobs
+
+    def list_jobs(self, include_finished: bool = True) -> list[dict]:
+        return self._jobs.list(include_finished)
+
+    def get_job(self, job_id: str):
+        return self._jobs.get(job_id)
+
+    job = get_job
+
+    def cancel_job(self, job_id: str) -> bool:
+        return self._jobs.cancel(job_id)
+
+    def job_history(self) -> list[dict]:
+        return self._jobs.history()
+
+    # ---------------------------------------------------- serialization
+
+    def serialize(self) -> str:
+        """This connection as JSON, for ``deserialize_conn`` in another
+        process. It carries the device, so the copy runs where this one
+        does."""
+        return json.dumps({
+            "connection_type": "local",
+            "uri": self.uri,
+            "device": str(self.device),
+            "storage_options": self.storage_options,
+            "read_consistency_interval_seconds": self.read_consistency_interval,
+        })
+
+
+def deserialize_conn(serialized: str) -> LanceDBConnection:
+    """A connection from ``LanceDBConnection.serialize()``, on the device
+    it names (a CUDA device raises where there is no card)."""
+    doc = json.loads(serialized)
+    if doc.get("connection_type") != "local":
+        raise InvalidInputError(f"unknown connection_type {doc.get('connection_type')!r}")
+    if "device" not in doc:
+        raise InvalidInputError("a serialized connection must name its device")
+    return LanceDBConnection(
+        doc["uri"],
+        device=doc["device"],
+        storage_options=doc.get("storage_options") or None,
+        read_consistency_interval=doc.get("read_consistency_interval_seconds"),
+    )
 
 
 def connect(
     uri: str,
     device=None,
     *,
+    read_consistency_interval: float | None = None,
     storage_options: dict | None = None,
     session: Session | None = None,
+    storage_options_provider=None,
 ) -> LanceDBConnection:
     """Connect to a local or in-memory database (reference
     __init__.py:69 connect). ``device=None`` is the CUDA card; without
-    one this raises rather than falling back to the CPU."""
+    one this raises rather than falling back to the CPU.
+    ``read_consistency_interval``: None reads the version the table was
+    opened at until this handle writes; 0 checks for a newer version
+    before every read; a positive number of seconds refreshes in the
+    background."""
     if uri.startswith("db://"):
         raise NotImplementedError(
             "remote connections are not ported to lancedb_tpu_torch yet (ROADMAP A12)"
         )
-    return LanceDBConnection(uri, device=device, storage_options=storage_options, session=session)
+    return LanceDBConnection(uri, device=device,
+                             read_consistency_interval=read_consistency_interval,
+                             storage_options=storage_options, session=session,
+                             storage_options_provider=storage_options_provider)

@@ -19,22 +19,31 @@ runs the vector legs (every CUDA call stays on it), then fuses each pair
 with a reranker (RRF by default).
 
 A multivector column is searched by late interaction
-(index/multivector.py). Plain scans, plan explanation and text queries
-that need an embedding function wait for later slices (ROADMAP A4, A12).
+(index/multivector.py). A plain scan (``query()``, ``search(None)``)
+streams the dataset's fragments through the filter and projection.
+``explain_plan`` prints the physical plan; ``analyze_plan`` runs the
+query and times each operator, synchronizing the table's CUDA device
+around each one so that the times cover the device's work (only during
+an analyze run). Text queries that need an embedding function, LSM reads
+and ``to_pydantic`` wait for a later slice (ROADMAP A12).
 """
 
 from __future__ import annotations
 
+import contextvars
+import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field, replace
+from typing import Iterable
 
 import numpy as np
 import pyarrow as pa
+import torch
 
 from ._surface import NotPortedSurface
 from .arrow import fsl_to_numpy, is_multivector_type, vector_column_name
 from .errors import InvalidInputError
-from .filters.eval import evaluate_predicate_mask
+from .filters.eval import evaluate_expression, evaluate_predicate_mask
 from .filters.sql import parse_sql_expr
 from .index.vector import SearchParams, brute_force_search
 from .ops.distance import normalize_metric
@@ -48,6 +57,15 @@ DIST_COL = "_distance"
 QUERY_INDEX_COL = "query_index"
 
 _INVALID_ROWID = np.uint64(np.iinfo(np.uint64).max)
+
+
+@dataclass
+class ColumnOrdering:
+    """One ORDER BY key (reference query.py:361 ColumnOrdering)."""
+
+    column_name: str
+    ascending: bool = True
+    nulls_first: bool = False
 
 
 @dataclass
@@ -70,7 +88,7 @@ class VectorQueryRequest:
     use_index: bool = True  # False: brute force (bypass_vector_index)
     fast_search: bool = False  # True: skip the unindexed delta fragments
     precision: str = "default"  # FLAT scans and the brute force of delta rows
-    select: list[str] | None = None
+    select: list[str] | dict[str, str] | None = None  # a dict: alias → SQL expression
     with_row_id: bool = False
 
 
@@ -111,19 +129,23 @@ def execute_vector_query(table, req: VectorQueryRequest) -> pa.Table:
     # ---- prefilter -------------------------------------------------------
     allowed: np.ndarray | None = None
     if req.filter is not None and req.prefilter:
-        allowed = compute_allowed_rowids(table, req.filter)
+        with _op_timer("PrefilterExec") as t:
+            allowed = compute_allowed_rowids(table, req.filter)
+            t.set_rows(len(allowed))
         if len(allowed) == 0:
             return _empty_result(table, req, multi)
     k_search = req.k + req.offset
 
     # ---- search ----------------------------------------------------------
     if searcher is None:
-        dists, rowids = _brute_force_fragments(
-            table, column, queries, req, k_search, metric, frags=ds.manifest.fragments
-        )
+        with _op_timer("KnnFlatExec") as t:
+            dists, rowids = _brute_force_fragments(
+                table, column, queries, req, k_search, metric, frags=ds.manifest.fragments
+            )
+            t.set_rows(int((rowids != _INVALID_ROWID).sum()))
     else:
         # rows deleted after the build, and fragments dropped since
-        deleted, vanished = _deleted_rowids(ds, index_meta)
+        deleted, vanished = _deleted_rowids(ds, index_meta, searcher)
         pen = searcher.slot_penalty(allowed, deleted, vanished_fragments=vanished)
         if req.refine_factor is not None:
             # fused device refine when a resident copy of the column fits;
@@ -141,19 +163,24 @@ def execute_vector_query(table, req: VectorQueryRequest) -> pa.Table:
                 d, r = searcher.refine(ds, column, queries, d, r, k_search)
             return d, r
 
-        dists, rowids = run(req.minimum_nprobes)
-        # adaptive expansion (reference minimum/maximum_nprobes,
-        # query.rs:1215-1283): when filters starve the probed partitions,
-        # retry once at maximum_nprobes (None = every partition)
-        max_np = (req.maximum_nprobes if req.maximum_nprobes is not None
-                  else max(req.minimum_nprobes, 1 << 20))
-        if max_np > req.minimum_nprobes and (rowids == _INVALID_ROWID).any():
-            dists, rowids = run(max_np)
+        with _op_timer("ANNSubIndexExec") as t:
+            dists, rowids = run(req.minimum_nprobes)
+            # adaptive expansion (reference minimum/maximum_nprobes,
+            # query.rs:1215-1283): when filters starve the probed partitions,
+            # retry once at maximum_nprobes (None = every partition)
+            max_np = (req.maximum_nprobes if req.maximum_nprobes is not None
+                      else max(req.minimum_nprobes, 1 << 20))
+            if max_np > req.minimum_nprobes and (rowids == _INVALID_ROWID).any():
+                dists, rowids = run(max_np)
+            t.set_rows(int((rowids != _INVALID_ROWID).sum()))
         # delta fragments not covered by the index → brute force + merge
         covered = set(index_meta.fragment_ids)
         delta = [f for f in ds.manifest.fragments if f.id not in covered]
         if delta and not req.fast_search:
-            d2, r2 = _brute_force_fragments(table, column, queries, req, k_search, metric, delta)
+            with _op_timer("KnnFlatExec") as t:
+                d2, r2 = _brute_force_fragments(table, column, queries, req, k_search, metric,
+                                                delta)
+                t.set_rows(int((r2 != _INVALID_ROWID).sum()))
             dists, rowids = _merge_host(dists, rowids, d2, r2, k_search)
 
     # ---- distance range: lower bound inclusive, upper bound exclusive ----
@@ -162,7 +189,9 @@ def execute_vector_query(table, req: VectorQueryRequest) -> pa.Table:
     if req.upper_bound is not None:
         dists = np.where(dists < req.upper_bound, dists, np.inf)
     rowids = np.where(np.isfinite(dists), rowids, _INVALID_ROWID)
-    out = _hydrate_results(table, req, dists, rowids, multi)
+    with _op_timer("TakeExec") as t:
+        out = _hydrate_results(table, req, dists, rowids, multi)
+        t.set_rows(out.num_rows)
     return _postfilter_and_offset(out, req, len(req.query_vectors) if multi else 0)
 
 
@@ -171,7 +200,9 @@ def _postfilter_and_offset(out: pa.Table, req: VectorQueryRequest, nq_multi: int
     query's rows ``offset`` to ``offset + k`` (split by query_index for a
     batch of ``nq_multi`` queries)."""
     if req.filter is not None and not req.prefilter and out.num_rows:
-        out = out.filter(pa.array(evaluate_predicate_mask(out, req.filter)))
+        with _op_timer("FilterExec") as t:
+            out = out.filter(pa.array(evaluate_predicate_mask(out, req.filter)))
+            t.set_rows(out.num_rows)
     if req.offset:
         if nq_multi:
             out = pa.concat_tables([
@@ -228,9 +259,23 @@ def compute_allowed_rowids(table, predicate: str) -> np.ndarray:
     return np.sort(t.column(ROW_ID_COL).to_numpy().astype(np.uint64))
 
 
-def _deleted_rowids(ds, index_meta) -> tuple[np.ndarray | None, set[int] | None]:
+def _indexed_fragments(searcher) -> set[int]:
+    """The fragments whose rows a searcher holds (computed once per
+    searcher, which never changes)."""
+    frags = getattr(searcher, "_indexed_fragments", None)
+    if frags is None:
+        frags = set(np.unique(searcher.row_ids_flat >> np.uint64(32)).tolist())
+        searcher._indexed_fragments = frags
+    return frags
+
+
+def _deleted_rowids(ds, index_meta, searcher) -> tuple[np.ndarray | None, set[int] | None]:
     """(deleted row addresses, vanished fragment ids) the index may still
-    contain: rows deleted after the build, and fragments dropped entirely."""
+    contain: rows deleted after the build, and fragments dropped entirely.
+    A compaction takes the fragments it merges out of the index's coverage,
+    so the vanished ones are those the searcher holds, not only those the
+    catalog lists (the reference takes the catalog's alone, and its search
+    between compact_files() and a reindex fails; ROADMAP §C)."""
     out = []
     covered = set(index_meta.fragment_ids)
     present = set()
@@ -242,7 +287,7 @@ def _deleted_rowids(ds, index_meta) -> tuple[np.ndarray | None, set[int] | None]
         if keep is not None:
             gone = np.nonzero(~keep)[0].astype(np.uint64)
             out.append((np.uint64(meta.id) << np.uint64(32)) | gone)
-    vanished = covered - present
+    vanished = (covered | _indexed_fragments(searcher)) - present
     deleted = np.concatenate(out) if out else None
     return deleted, (vanished or None)
 
@@ -286,13 +331,26 @@ def _merge_host(d1, r1, d2, r2, k):
     return np.take_along_axis(d, order, axis=1), np.take_along_axis(r, order, axis=1)
 
 
+def _selected_columns(req) -> list[str] | None:
+    """The columns to read: None for all of them, and for a dict of SQL
+    expressions, which are evaluated over whole rows."""
+    return None if req.select is None or isinstance(req.select, dict) else list(req.select)
+
+
+def _project(tbl: pa.Table, select: dict[str, str]) -> pa.Table:
+    """``select({alias: SQL expression})`` over rows read in full."""
+    return pa.table({alias: evaluate_expression(tbl, expr) for alias, expr in select.items()})
+
+
 def _hydrate_results(table, req, dists, rowids, multi) -> pa.Table:
     ds = table._dataset
     parts = []
     for qi in range(dists.shape[0]):
         valid = rowids[qi] != _INVALID_ROWID
         rid = rowids[qi][valid]
-        data = ds.take_rows(rid, columns=req.select)
+        data = ds.take_rows(rid, columns=_selected_columns(req))
+        if isinstance(req.select, dict):
+            data = _project(data, req.select)
         data = data.append_column(DIST_COL, pa.array(dists[qi][valid].astype(np.float32)))
         if req.with_row_id:
             data = data.append_column(ROW_ID_COL, pa.array(rid, type=pa.uint64()))
@@ -305,13 +363,143 @@ def _hydrate_results(table, req, dists, rowids, multi) -> pa.Table:
 
 
 def _empty_result(table, req, multi) -> pa.Table:
-    fields = [f for f in table._dataset.schema if req.select is None or f.name in req.select]
+    cols = _selected_columns(req)
+    fields = [f for f in table._dataset.schema if cols is None or f.name in cols]
+    if isinstance(req.select, dict):
+        fields = [pa.field(alias, pa.float64()) for alias in req.select]
     fields.append(pa.field(DIST_COL, pa.float32()))
     if req.with_row_id:
         fields.append(pa.field(ROW_ID_COL, pa.uint64()))
     if multi:
         fields.append(pa.field(QUERY_INDEX_COL, pa.int32()))
     return pa.schema(fields).empty_table()
+
+
+# ===================================================================== plans
+
+# Per-operator metrics of an analyze run (reference query.py:411-519): the
+# operators of execute_vector_query record into a context variable that
+# only analyze_plan sets, so a plain query pays nothing.
+_PLAN_METRICS: contextvars.ContextVar = contextvars.ContextVar("plan_metrics", default=None)
+
+
+@dataclass
+class _PlanSink:
+    metrics: dict
+    device: torch.device  # the table's device, synchronized around each operator
+
+
+def _device_clock(device: torch.device) -> float:
+    """The host clock, read once the device's queued work has finished."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+class _op_timer:
+    """Times one operator while an analyze run is active; a no-op otherwise.
+    On a CUDA device the clock is read after a synchronization of the
+    table's device, so an operator's time covers the device work it
+    queued, not only the time to launch it."""
+
+    def __init__(self, op: str):
+        self.op = op
+        self._sink = _PLAN_METRICS.get()
+        self.rows = None
+
+    def __enter__(self):
+        if self._sink is not None:
+            self._t0 = _device_clock(self._sink.device)
+        return self
+
+    def set_rows(self, n: int) -> None:
+        self.rows = int(n)
+
+    def __exit__(self, *exc):
+        if self._sink is not None:
+            rec = self._sink.metrics.setdefault(self.op, {"elapsed_s": 0.0, "invocations": 0})
+            rec["elapsed_s"] += _device_clock(self._sink.device) - self._t0
+            rec["invocations"] += 1
+            if self.rows is not None:
+                rec["output_rows"] = rec.get("output_rows", 0) + self.rows
+
+
+def explain_vector_plan(table, req: VectorQueryRequest) -> str:
+    """The physical plan as text (reference query.py:411, explain_plan;
+    the brute force is a matmul scan on any device)."""
+    ds = table._dataset
+    column = req.column or vector_column_name(ds.schema)
+    index_meta = None
+    if req.use_index:
+        index_meta = next((ix for ix in ds.manifest.indices if ix.columns == [column]), None)
+    lines = [f"ProjectionExec: columns={req.select or 'all'} +[_distance]"]
+    if req.filter and not req.prefilter:
+        lines.append(f"  FilterExec: postfilter [{req.filter}]")
+    lines.append(f"  SortExec: _distance ASC, limit={req.k} offset={req.offset}")
+    lines.append("    TakeExec: late materialization via row addresses")
+    if index_meta is not None:
+        ix = index_meta
+        nprobes = (
+            f"{req.minimum_nprobes}..{req.maximum_nprobes}"
+            if req.maximum_nprobes not in (None, req.minimum_nprobes)
+            else f"{req.minimum_nprobes}"
+        )
+        ef = f" ef={req.ef}" if req.ef is not None else ""
+        lines.append(
+            f"      ANNSubIndexExec: {ix.index_type} column={column} "
+            f"nprobes={nprobes} refine={req.refine_factor or 0}{ef} "
+            f"metric={ix.params.get('metric')} partitions={ix.params.get('num_partitions')}"
+        )
+        covered = set(ix.fragment_ids)
+        delta = [f.id for f in ds.manifest.fragments if f.id not in covered]
+        if delta and not req.fast_search:
+            lines.append(f"      KnnFlatExec: delta fragments {delta} (matmul scan)")
+    else:
+        lines.append(f"      KnnFlatExec: brute-force column={column} (matmul scan)")
+    if req.filter and req.prefilter:
+        lines.append(f"        PrefilterExec: [{req.filter}] → slot penalty mask")
+    return "\n".join(lines)
+
+
+def analyze_vector_plan(table, req: VectorQueryRequest) -> str:
+    """Run the query, then print the plan with each operator's output rows
+    and time, the whole query's time and the store's reads (reference
+    query.py:456, analyze_plan)."""
+    from .io.object_store import IoStats, IoTrackingStore
+
+    ds = table._dataset
+    stats = IoStats()
+    orig_store = ds.store
+    ds.store = IoTrackingStore(orig_store, stats)
+    sink = _PlanSink({}, table._device)
+    token = _PLAN_METRICS.set(sink)
+    try:
+        t0 = _device_clock(sink.device)
+        out = execute_vector_query(table, req)
+        elapsed = _device_clock(sink.device) - t0
+    finally:
+        _PLAN_METRICS.reset(token)
+        ds.store = orig_store
+    snap = stats.snapshot()
+    plan_lines = []
+    for line in explain_vector_plan(table, req).splitlines():
+        rec = sink.metrics.get(line.strip().split(":", 1)[0])
+        if rec is not None:
+            parts = [f"output_rows={rec.get('output_rows', 0)}",
+                     f"elapsed_compute={rec['elapsed_s'] * 1e3:.3f}ms"]
+            if rec["invocations"] > 1:
+                parts.append(f"invocations={rec['invocations']}")
+            line = f"{line}, metrics=[{', '.join(parts)}]"
+        plan_lines.append(line)
+    return (
+        "\n".join(plan_lines) + "\n"
+        f"-- metrics --\n"
+        f"elapsed_ms={elapsed * 1e3:.3f} output_rows={out.num_rows} "
+        f"iops={snap['read_iops']} bytes_read={snap['read_bytes']}"
+    )
+
+
+# ================================================================= builders
 
 
 def _coerce_query_vectors(query) -> list[np.ndarray]:
@@ -327,19 +515,23 @@ def _coerce_query_vectors(query) -> list[np.ndarray]:
 
 class LanceQueryBuilder(NotPortedSurface):
     """Fluent builder base (reference query.py LanceQueryBuilder): the
-    setters every search kind shares, and the dispatch on query type."""
+    setters and outputs every query kind shares, and the dispatch on query
+    type."""
 
-    _NOT_PORTED = dict.fromkeys(
-        ("with_row_address", "filter", "order_by", "fragment_ids",
-         "with_fragments", "to_batches", "to_pandas", "to_polars", "to_df", "to_table",
-         "to_pyarrow", "to_json", "to_reader", "to_pydantic", "output_schema",
-         "to_query_object", "explain_plan", "analyze_plan"),
-        "A4",
-    )
+    _NOT_PORTED = dict.fromkeys(("use_lsm", "to_pydantic"), "A12")
+
+    _limit_set = False
+    _explicit_row_id = False
+    _with_row_address = False
+    _fragment_ids: list[int] | None = None
+    _order_by: list[tuple[str, str]] | None = None
+    _order_nulls: list[str | None] | None = None
 
     def __init__(self, table):
         self._table = table
         self._req = VectorQueryRequest()
+
+    # ------------------------------------------------------------ setters
 
     def where(self, predicate, prefilter: bool = True) -> "LanceQueryBuilder":
         """SQL filter, or a substrait ExtendedExpression blob (reference
@@ -358,6 +550,8 @@ class LanceQueryBuilder(NotPortedSurface):
         self._req.prefilter = prefilter
         return self
 
+    filter = where
+
     def postfilter(self) -> "LanceQueryBuilder":
         """Apply the filter AFTER the search (reference postfilter())."""
         self._req.prefilter = False
@@ -369,40 +563,181 @@ class LanceQueryBuilder(NotPortedSurface):
         self._req.offset = int(n)
         return self
 
-    def select(self, columns: list[str]) -> "LanceQueryBuilder":
-        if isinstance(columns, dict):
-            raise NotImplementedError(
-                "SQL projections in select() are not ported to lancedb_tpu_torch yet (ROADMAP A4)"
-            )
-        self._req.select = list(columns)
+    def select(self, columns: list[str] | dict[str, str]) -> "LanceQueryBuilder":
+        """Columns to return, or ``{alias: SQL expression}``."""
+        self._req.select = dict(columns) if isinstance(columns, dict) else list(columns)
         return self
 
-    def limit(self, k: int) -> "LanceQueryBuilder":
+    def limit(self, k: int | None) -> "LanceQueryBuilder":
+        """At most ``k`` rows a query. A vector search needs one; a plain
+        scan or a full-text search takes None or 0 as every row."""
+        self._limit_set = True
         if k is None or k <= 0:
-            raise ValueError("Limit is required for ANN/KNN queries")
-        self._req.k = int(k)
+            if isinstance(self, LanceVectorQueryBuilder):
+                raise ValueError("Limit is required for ANN/KNN queries")
+            self._req.k = max(self._table.count_rows(), 1)
+        else:
+            self._req.k = int(k)
         return self
 
     def with_row_id(self, flag: bool = True) -> "LanceQueryBuilder":
         """Add the ``_rowid`` column (the row address) to the results."""
         self._req.with_row_id = flag
+        self._explicit_row_id = flag
         return self
+
+    def with_row_address(self, flag: bool = True) -> "LanceQueryBuilder":
+        """Add the ``_rowaddr`` column. Row ids here are physical addresses
+        (fragment << 32 | offset), so it equals ``_rowid``."""
+        self._with_row_address = flag
+        if flag:
+            self._req.with_row_id = True
+        return self
+
+    def fragment_ids(self, fragment_ids: list[int]) -> "LanceQueryBuilder":
+        """Restrict a plain scan to these fragments."""
+        self._fragment_ids = [int(f) for f in fragment_ids]
+        return self
+
+    def with_fragments(self, fragments) -> "LanceQueryBuilder":
+        """Restrict a plain scan to these fragments (metadata or ids)."""
+        self._fragment_ids = [int(getattr(f, "id", f)) for f in fragments]
+        return self
+
+    def order_by(self, *columns) -> "LanceQueryBuilder":
+        """Sort the output rows: each key a column name, a (name,
+        'asc'|'desc') pair or a ColumnOrdering. On a search it orders the
+        k results."""
+        keys, nulls = [], []
+        for c in columns:
+            if isinstance(c, str):
+                keys.append((c, "ascending"))
+                nulls.append(None)
+            elif isinstance(c, ColumnOrdering):
+                keys.append((c.column_name, "ascending" if c.ascending else "descending"))
+                nulls.append("first" if c.nulls_first else "last")
+            else:
+                name, direction = c
+                desc = str(direction).lower().startswith("desc")
+                keys.append((name, "descending" if desc else "ascending"))
+                nulls.append(None)
+        self._order_by = keys
+        self._order_nulls = nulls
+        return self
+
+    def _sort_table(self, out: pa.Table) -> pa.Table:
+        nulls = self._order_nulls or [None] * len(self._order_by)
+        if "first" not in nulls:
+            return out.sort_by(self._order_by)
+        # pyarrow sorts nulls last: a nulls-first key sorts on a null flag first
+        combined, keys = out, []
+        for i, ((name, direction), n) in enumerate(zip(self._order_by, nulls)):
+            col = out.column(name)
+            if n == "first" and col.null_count:
+                combined = combined.append_column(f"__nullord{i}", pa.compute.is_null(col))
+                keys.append((f"__nullord{i}", "descending"))
+            keys.append((name, direction))
+        return out.take(pa.compute.sort_indices(combined, sort_keys=keys))
+
+    def _sorted(self, out: pa.Table) -> pa.Table:
+        """The row-address column and the ordering, applied to a result."""
+        if self._with_row_address and ROW_ID_COL in out.column_names:
+            out = out.append_column("_rowaddr", out.column(ROW_ID_COL))
+            if not self._explicit_row_id:
+                out = out.drop_columns([ROW_ID_COL])
+        return self._sort_table(out) if self._order_by else out
+
+    def _check_scan_only_flags(self) -> None:
+        """A search refuses the options that only a plain scan honours."""
+        if self._fragment_ids is not None:
+            raise InvalidInputError(
+                "fragment_ids/with_fragments apply to plain scanner-backed "
+                "queries only (reference query.py:1327-1335)"
+            )
+
+    def to_query_object(self) -> dict:
+        """The accumulated query as a plain dict."""
+        import dataclasses
+
+        req = dataclasses.asdict(self._req)
+        req["query_vectors"] = [np.asarray(v).tolist() for v in req.get("query_vectors", [])]
+        req["query_type"] = type(self).__name__.replace("LanceQueryBuilder", "").replace(
+            "Lance", "").replace("QueryBuilder", "").lower() or "empty"
+        if self._fragment_ids is not None:
+            req["fragment_ids"] = self._fragment_ids
+        return req
+
+    # ------------------------------------------------------------ outputs
+
+    def to_arrow(self) -> pa.Table:
+        raise NotImplementedError
+
+    def to_batches(self, max_batch_length: int = 1024,
+                   timeout: float | None = None) -> Iterable[pa.RecordBatch]:
+        """The results as RecordBatches of at most ``max_batch_length`` rows.
+        A search's results are k-bounded, so it runs, then re-chunks; the
+        plain scan streams fragment by fragment."""
+        start = time.monotonic()
+        for b in self.to_arrow().to_batches(max_chunksize=max_batch_length):
+            if timeout is not None and time.monotonic() - start > timeout:
+                raise TimeoutError(f"query exceeded timeout={timeout}s")
+            yield b
+
+    def to_pandas(self, flatten=None, **kwargs):
+        from .arrow import flatten_columns
+
+        return flatten_columns(self.to_arrow(), flatten).to_pandas(**kwargs)
+
+    def to_df(self):
+        return self.to_pandas()
+
+    def to_table(self) -> pa.Table:
+        return self.to_arrow()
+
+    to_pyarrow = to_table
 
     def to_list(self) -> list[dict]:
         return self.to_arrow().to_pylist()
 
+    def to_json(self) -> list[dict]:
+        """Rows as JSON-safe dicts."""
+        import json
+
+        return json.loads(json.dumps(
+            self.to_list(), default=lambda o: o.tolist() if hasattr(o, "tolist") else str(o)))
+
+    def to_reader(self, max_batch_length: int = 1024) -> pa.RecordBatchReader:
+        out = self.to_arrow()
+        return pa.RecordBatchReader.from_batches(
+            out.schema, out.to_batches(max_chunksize=max_batch_length))
+
+    def output_schema(self) -> pa.Schema:
+        """The schema of the result rows (runs the query with limit 1)."""
+        import copy
+
+        saved = copy.deepcopy(self._req)
+        try:
+            self._req.k = 1
+            return self.to_arrow().schema
+        finally:
+            self._req = saved
+
+    def to_polars(self):
+        import polars as pl
+
+        return pl.from_arrow(self.to_arrow())
+
     @staticmethod
     def create(table, query, query_type: str = "auto", vector_column_name: str | None = None,
                fts_columns: list[str] | None = None) -> "LanceQueryBuilder":
-        """Dispatch on the query's type (reference query.py:782-825): a
-        (vector, text) pair or query_type "hybrid" → hybrid; a string or
-        an FTS query node → full text; anything else → vector."""
+        """Dispatch on the query's type (reference query.py:782-825): None →
+        a plain scan; a (vector, text) pair or query_type "hybrid" →
+        hybrid; a string or an FTS query node → full text; anything else →
+        vector."""
         from .query_fts import FtsQueryNode
 
         if query is None:
-            raise NotImplementedError(
-                "plain scans (search(None)) are not ported to lancedb_tpu_torch yet (ROADMAP A4)"
-            )
+            return LanceEmptyQueryBuilder(table)
         if query_type == "hybrid" or (
             query_type == "auto" and isinstance(query, tuple) and len(query) == 2
         ):
@@ -425,17 +760,21 @@ class LanceQueryBuilder(NotPortedSurface):
 class LanceVectorQueryBuilder(LanceQueryBuilder):
     """Vector (ANN/KNN) search builder (reference query.py:1559)."""
 
-    _NOT_PORTED = {
-        **LanceQueryBuilder._NOT_PORTED,
-        **dict.fromkeys(("vector", "column"), "A4"),
-        "use_lsm": "A12",
-    }
-
     def __init__(self, table, query, vector_column_name: str | None = None):
         super().__init__(table)
         self._req.column = vector_column_name
         self._req.query_vectors = _coerce_query_vectors(query)
         self._reranker = None
+
+    def vector(self, vector) -> "LanceVectorQueryBuilder":
+        """Replace the query vector(s)."""
+        self._req.query_vectors = _coerce_query_vectors(vector)
+        return self
+
+    def column(self, name: str) -> "LanceVectorQueryBuilder":
+        """Search this vector column."""
+        self._req.column = name
+        return self
 
     def nprobes(self, n: int) -> "LanceVectorQueryBuilder":
         self._req.minimum_nprobes = int(n)
@@ -496,13 +835,104 @@ class LanceVectorQueryBuilder(LanceQueryBuilder):
         return self
 
     def to_arrow(self) -> pa.Table:
+        self._check_scan_only_flags()
         if self._reranker is None:
-            return execute_vector_query(self._table, self._req)
+            return self._sorted(execute_vector_query(self._table, self._req))
         out = execute_vector_query(self._table, replace(self._req, with_row_id=True))
         out = self._reranker.rerank_vector("", out).slice(0, self._req.k)
         if not self._req.with_row_id and ROW_ID_COL in out.column_names:
             out = out.drop_columns([ROW_ID_COL])
+        return self._sorted(out)
+
+    def explain_plan(self, verbose: bool = False) -> str:
+        return explain_vector_plan(self._table, self._req)
+
+    def analyze_plan(self) -> str:
+        return analyze_vector_plan(self._table, self._req)
+
+
+class LanceEmptyQueryBuilder(LanceQueryBuilder):
+    """A plain scan: filter, projection, ordering, offset and limit
+    (reference query.py:929-1076)."""
+
+    def _carry(self, b: LanceQueryBuilder) -> LanceQueryBuilder:
+        b._req.filter = self._req.filter
+        b._req.prefilter = self._req.prefilter
+        b._req.select = self._req.select
+        # a search refuses a scan-only option instead of dropping it
+        b._fragment_ids = self._fragment_ids
+        return b
+
+    def nearest_to(self, vector) -> "LanceVectorQueryBuilder":
+        """Switch to a vector search."""
+        return self._carry(LanceVectorQueryBuilder(self._table, vector, self._req.column))
+
+    def nearest_to_text(self, text: str, columns: list[str] | None = None
+                        ) -> "LanceFtsQueryBuilder":
+        """Switch to a full-text search."""
+        return self._carry(LanceFtsQueryBuilder(self._table, text, columns))
+
+    def _scan_limit(self) -> int | None:
+        # a plain scan has no limit unless .limit() was called
+        return self._req.k if self._limit_set else None
+
+    def to_arrow(self) -> pa.Table:
+        ds = self._table._dataset
+        limit = self._scan_limit()
+        # a sort decides which rows the limit keeps: push the limit and the
+        # offset down only into an unsorted scan
+        out = ds.to_table(
+            columns=_selected_columns(self._req),
+            predicate=self._req.filter,
+            limit=None if self._order_by else limit,
+            offset=0 if self._order_by else self._req.offset,
+            with_row_id=self._req.with_row_id,
+            fragments=self._fragment_ids,
+        )
+        if isinstance(self._req.select, dict):
+            out = _project(out, self._req.select)
+        if self._order_by:
+            out = self._sort_table(out)
+            if self._req.offset:
+                out = out.slice(self._req.offset)
+            if limit is not None:
+                out = out.slice(0, limit)
+        if self._with_row_address and ROW_ID_COL in out.column_names:
+            out = out.append_column("_rowaddr", out.column(ROW_ID_COL))
+            if not self._explicit_row_id:
+                out = out.drop_columns([ROW_ID_COL])
         return out
+
+    def to_batches(self, max_batch_length: int = 1024,
+                   timeout: float | None = None) -> Iterable[pa.RecordBatch]:
+        """A streaming scan: one fragment resident at a time, so a scan of
+        the whole table runs in bounded host memory. A sorted, fragment-
+        scoped or row-address scan works on the whole result instead."""
+        if self._order_by or self._fragment_ids is not None or self._with_row_address:
+            yield from super().to_batches(max_batch_length, timeout)
+            return
+        start = time.monotonic()
+        dyn = self._req.select if isinstance(self._req.select, dict) else None
+        for batch in self._table._dataset.scan_batches(
+            columns=_selected_columns(self._req),
+            predicate=self._req.filter,
+            limit=self._scan_limit(),
+            offset=self._req.offset,
+            with_row_id=self._req.with_row_id,
+            max_batch_length=max_batch_length,
+        ):
+            if timeout is not None and time.monotonic() - start > timeout:
+                raise TimeoutError(f"query exceeded timeout={timeout}s")
+            if dyn is not None:
+                batch = _project(pa.Table.from_batches([batch]), dyn).combine_chunks(
+                ).to_batches()[0]
+            yield batch
+
+    def explain_plan(self, verbose: bool = False) -> str:
+        return (
+            f"ProjectionExec: columns={self._req.select or 'all'}\n"
+            f"  ScanExec: filter=[{self._req.filter}] limit={self._req.k}"
+        )
 
 
 class LanceFtsQueryBuilder(LanceQueryBuilder):
@@ -527,6 +957,15 @@ class LanceFtsQueryBuilder(LanceQueryBuilder):
         """The query text or FTS AST node."""
         return self._query
 
+    def to_query_object(self) -> dict:
+        obj = super().to_query_object()
+        obj["query_type"] = "fts"
+        q = self._query
+        obj["full_text_query"] = q.to_json() if hasattr(q, "to_json") else {
+            "query": str(q), "columns": self._fts_columns,
+        }
+        return obj
+
     def phrase_query(self, flag: bool = True) -> "LanceFtsQueryBuilder":
         """Treat the query text as an exact phrase."""
         if flag and isinstance(self._query, str):
@@ -536,6 +975,7 @@ class LanceFtsQueryBuilder(LanceQueryBuilder):
         return self
 
     def to_arrow(self) -> pa.Table:
+        self._check_scan_only_flags()
         out = self._table._execute_fts(
             self._query,
             columns=self._fts_columns,
@@ -550,7 +990,13 @@ class LanceFtsQueryBuilder(LanceQueryBuilder):
             out = self._reranker.rerank_fts(str(self._query), out).slice(0, self._req.k)
             if not self._req.with_row_id and ROW_ID_COL in out.column_names:
                 out = out.drop_columns([ROW_ID_COL])
-        return out
+        return self._sorted(out)
+
+    def explain_plan(self, verbose: bool = False) -> str:
+        return (
+            f"ProjectionExec: +[_score]\n  SortExec: _score DESC limit={self._req.k}\n"
+            f"    FtsExec: BM25 query={self._query!r} filter=[{self._req.filter}]"
+        )
 
 
 class LanceHybridQueryBuilder(LanceQueryBuilder):
@@ -631,6 +1077,17 @@ class LanceHybridQueryBuilder(LanceQueryBuilder):
         self._vector = np.asarray(vector, dtype=np.float32)
         return self
 
+    def to_query_object(self) -> dict:
+        obj = super().to_query_object()
+        obj["query_type"] = "hybrid"
+        obj["query_vectors"] = [np.asarray(self._vector).tolist()] if self._vector is not None else []
+        q = self._text_query
+        obj["full_text_query"] = q.to_json() if hasattr(q, "to_json") else {
+            "query": str(q), "columns": self._fts_columns,
+        }
+        obj["vector_options"] = dict(self._vq_opts)
+        return obj
+
     def _vector_leg(self, query_vectors) -> LanceVectorQueryBuilder:
         vq = LanceVectorQueryBuilder(self._table, query_vectors, self._vector_column)
         vq._req.filter = self._req.filter
@@ -656,7 +1113,7 @@ class LanceHybridQueryBuilder(LanceQueryBuilder):
     def _keep_selected(self, out: pa.Table, extra=()) -> pa.Table:
         if not self._req.with_row_id and ROW_ID_COL in out.column_names:
             out = out.drop_columns([ROW_ID_COL])
-        if self._req.select is not None:
+        if self._req.select is not None and not isinstance(self._req.select, dict):
             keep = set(self._req.select) | {DIST_COL, SCORE_COL, RELEVANCE_COL, ROW_ID_COL,
                                             *extra}
             out = out.select([c for c in out.column_names if c in keep])
@@ -689,7 +1146,7 @@ class LanceHybridQueryBuilder(LanceQueryBuilder):
         parts = []
         for qi, (txt, fts_res) in enumerate(zip(texts, fts_results)):
             vres = vector_all.filter(pa.array(qidx == qi)).drop_columns([QUERY_INDEX_COL])
-            fused = reranker.rerank_hybrid(str(txt), vres, fts_res).slice(0, k)
+            fused = self._sorted(reranker.rerank_hybrid(str(txt), vres, fts_res).slice(0, k))
             fused = fused.append_column(
                 QUERY_INDEX_COL, pa.array(np.full(len(fused), qi, dtype=np.int32))
             )
@@ -700,6 +1157,7 @@ class LanceHybridQueryBuilder(LanceQueryBuilder):
     def to_arrow(self) -> pa.Table:
         from .rerankers.rrf import RRFReranker
 
+        self._check_scan_only_flags()
         if self._extra_queries:
             return self._to_arrow_batched()
         if self._vector is None:
@@ -712,4 +1170,4 @@ class LanceHybridQueryBuilder(LanceQueryBuilder):
             fts_results = fts_future.result()
         reranker = self._reranker or RRFReranker()
         fused = reranker.rerank_hybrid(str(self._text_query), vector_results, fts_results)
-        return self._keep_selected(fused.slice(0, self._req.k))
+        return self._sorted(self._keep_selected(fused.slice(0, self._req.k)))

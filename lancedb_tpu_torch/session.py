@@ -3,15 +3,19 @@
 Port of the searcher cache of the reference's session.py. Loaded
 searchers pin device memory (PQ codes, rnorms, the refine table), so the
 budget is in effect the device-memory budget for serving; eviction drops
-the device tensors, and a reload from the object store is lazy. The
-background read-consistency refresher waits for a later slice
-(ROADMAP A4).
+the device tensors, and a reload from the object store is lazy.
+``BackgroundRefresher`` keeps the tables of an eventually consistent
+connection fresh (the reference's session.py:99).
 """
 
 from __future__ import annotations
 
+import logging
 import threading
+import weakref
 from collections import OrderedDict
+
+logger = logging.getLogger(__name__)
 
 DEFAULT_INDEX_CACHE_BYTES = 8 << 30
 
@@ -76,3 +80,58 @@ class Session:
                 "misses": self.misses,
                 "evictions": self.evictions,
             }
+
+
+class BackgroundRefresher:
+    """A daemon thread that reloads the latest manifest of every table
+    registered with it, ahead of the connection's read-consistency
+    interval: every max(interval - min(3 s, interval / 4), interval / 2,
+    0.05) seconds (reference utils/background_cache.rs). It ends when its
+    tables are gone or on stop()."""
+
+    def __init__(self, interval: float):
+        self.interval = interval
+        refresh_window = min(3.0, interval / 4.0)
+        self._period = max(interval - refresh_window, interval * 0.5, 0.05)
+        self._tables: list[weakref.ref] = []
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    def register(self, table) -> None:
+        with self._lock:
+            self._tables.append(weakref.ref(table))
+            if self._thread is None and not self._stop.is_set():
+                self._thread = threading.Thread(target=self._run, daemon=True,
+                                                 name="lancedb-refresh")
+                self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.wait(self._period):
+            with self._lock:
+                refs = list(self._tables)
+            live = []
+            for ref in refs:
+                t = ref()
+                if t is None:
+                    continue
+                live.append(ref)
+                try:
+                    t._background_refresh()
+                except Exception:  # the thread keeps serving; the next period retries
+                    logger.exception("background refresh of table %r failed", t.name)
+            with self._lock:
+                self._tables = live
+                if not live:
+                    self._thread = None
+                    return
+
+    def stop(self, timeout: float | None = 5.0) -> bool:
+        """Stop the thread and wait for it; True once it has ended."""
+        self._stop.set()
+        with self._lock:
+            thread = self._thread
+        if thread is None or thread is threading.current_thread():
+            return True
+        thread.join(timeout)
+        return not thread.is_alive()

@@ -96,6 +96,9 @@ class VersionInfo:
         }
 
 
+_NOT_CACHED = object()
+
+
 class Dataset:
     """One versioned table on an object store."""
 
@@ -510,19 +513,25 @@ class Dataset:
 
     # ------------------------------------------------------------- read
 
+    # The two caches below are read, then assigned, never read again: a
+    # refresh on another thread (read consistency) may clear them between a
+    # membership test and a lookup, which raised KeyError in the reference's
+    # check-then-read form.
     def reader(self, fragment_id: int) -> FragmentReader:
-        if fragment_id not in self._readers:
+        reader = self._readers.get(fragment_id)
+        if reader is None:
             meta = self.manifest.fragment_by_id(fragment_id)
             if meta is None:
                 raise InvalidInputError(f"no fragment {fragment_id}")
-            self._readers[fragment_id] = FragmentReader(self.store, self.root, meta)
-        return self._readers[fragment_id]
+            reader = self._readers[fragment_id] = FragmentReader(self.store, self.root, meta)
+        return reader
 
     def _keep_mask(self, meta: FragmentMeta) -> np.ndarray | None:
         key = (meta.id, meta.deletion_file)
-        if key not in self._deletion_cache:
-            self._deletion_cache[key] = deletion_mask(self.store, self.root, meta)
-        return self._deletion_cache[key]
+        keep = self._deletion_cache.get(key, _NOT_CACHED)  # None: no deletions
+        if keep is _NOT_CACHED:
+            keep = self._deletion_cache[key] = deletion_mask(self.store, self.root, meta)
+        return keep
 
     def count_rows(self, predicate: str | None = None) -> int:
         if predicate is None:

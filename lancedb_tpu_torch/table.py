@@ -1,30 +1,36 @@
 """Table API: the user-facing handle over one versioned dataset.
 
-Port of the slice of the reference's table.py that the ported paths
-run: add, delete, count_rows, create_index (FLAT, IVF_FLAT, IVF_SQ,
-IVF_PQ, IVF_RQ, the HNSW family, AUTO, and the token index of a
-multivector column), create_scalar_index, create_fts_index, tokenize and
-search (vector, multivector, full-text and hybrid). The device chosen at
+Port of the reference's table.py: data CRUD (add, delete, update,
+merge_insert), search and plain scans, index CRUD (vector indexes of
+every ported type, scalar and full-text indexes), schema evolution, time
+travel with tags and branches, and optimize. The device chosen at
 ``connect()`` travels from the connection to every index build and
-searcher of the table; scalar and full-text indexes live on the host.
-The rest of the reference's surface raises NotImplementedError naming
-its ROADMAP item.
+searcher of the table, ``optimize()``'s rebuilds included; scalar and
+full-text indexes live on the host. Blobs, the LSM write path and
+embedding functions raise NotImplementedError naming ROADMAP A12, sharded
+serving A10. The async facade is ``aio.AsyncTable``.
 """
 
 from __future__ import annotations
 
+import sys
 import threading
+import time
+import types
 from dataclasses import dataclass
 from typing import Any, Literal
 
+import numpy as np
 import pyarrow as pa
+import pyarrow.dataset as pads
 
 from ._surface import NotPortedSurface
 from .arrow import is_vector_type, sanitize_vectors, to_arrow_table
 from .arrow import vector_column_name as _vector_column_name
-from .errors import InvalidInputError
+from .errors import IndexNotFoundError, InvalidInputError
 from .index import (
     FTS,
+    SCALAR_INDEX_TYPES,
     Auto,
     Bitmap,
     BTree,
@@ -39,8 +45,11 @@ from .index import (
     IvfSq,
     LabelList,
 )
-from .query import DEFAULT_TOP_K, LanceQueryBuilder
+from .query import DEFAULT_TOP_K, LanceEmptyQueryBuilder, LanceQueryBuilder, LanceVectorQueryBuilder
 from .storage.dataset import Dataset
+
+VECTOR_INDEX_TYPES = ("IVF_FLAT", "IVF_PQ", "IVF_SQ", "IVF_RQ", "FLAT", "IVF_HNSW_PQ",
+                      "IVF_HNSW_SQ", "IVF_HNSW_FLAT")
 
 
 @dataclass
@@ -66,48 +75,218 @@ def _supported_btree_type(t: pa.DataType) -> bool:
     )
 
 
+class Tags:
+    """Tag CRUD (reference trait Tags, table.rs:345-377)."""
+
+    def __init__(self, table: "Table"):
+        self._table = table
+
+    def create(self, name: str, version: int | None = None) -> None:
+        self._table._dataset.create_tag(name, version)
+
+    def list(self) -> dict[str, dict]:
+        return self._table._dataset.list_tags()
+
+    def update(self, name: str, version: int) -> None:
+        self._table._dataset.update_tag(name, version)
+
+    def delete(self, name: str) -> None:
+        self._table._dataset.delete_tag(name)
+
+    def get_version(self, name: str) -> int:
+        return self._table._dataset.tag_version(name)
+
+
+class MergeInsertBuilder(NotPortedSurface):
+    """Fluent upsert builder (reference MergeInsertBuilder, merge.rs:66-223)."""
+
+    _NOT_PORTED = {"use_lsm": "A12"}
+
+    def __init__(self, table: "Table", on: str | list[str]):
+        self._table = table
+        self._on = [on] if isinstance(on, str) else list(on)
+        self._update_all = False
+        self._update_condition: str | None = None
+        self._insert_all = False
+        self._delete_missing = False
+        self._delete_condition: str | None = None
+
+    def when_matched_update_all(self, where: str | None = None) -> "MergeInsertBuilder":
+        self._update_all = True
+        self._update_condition = where
+        return self
+
+    def when_not_matched_insert_all(self) -> "MergeInsertBuilder":
+        self._insert_all = True
+        return self
+
+    def when_not_matched_by_source_delete(self, condition: str | None = None
+                                          ) -> "MergeInsertBuilder":
+        self._delete_missing = True
+        self._delete_condition = condition
+        return self
+
+    def execute(self, new_data: Any, timeout: float | None = None) -> dict:
+        """One commit: matched rows rewritten into a new fragment (their old
+        copies deleted), unmatched source rows appended."""
+        stats = self._table._dataset.merge_insert(
+            to_arrow_table(new_data, schema=None),
+            on=self._on,
+            when_matched_update_all=self._update_all,
+            matched_condition=self._update_condition,
+            when_not_matched_insert_all=self._insert_all,
+            when_not_matched_by_source_delete=self._delete_missing,
+            delete_condition=self._delete_condition,
+        )
+        self._table._invalidate_caches()
+        return stats
+
+
+class _ProgressAdapter:
+    """The ``progress=`` forms of ``add`` as one event callback (reference
+    table.py _ProgressAdapter): a callable gets dicts with the reference's
+    keys, a tqdm-like object gets total/update/set_postfix_str, and True
+    builds a bar (tqdm when importable, else a line on stderr)."""
+
+    def __init__(self, progress):
+        self._t0 = time.time()
+        self._rows = 0
+        self._bytes = 0
+        self._total = None
+        self._cb = None
+        self._bar = None
+        self._own_bar = False
+        if progress is True:
+            try:
+                from tqdm import tqdm  # type: ignore
+
+                self._bar = tqdm(unit="rows")
+                self._own_bar = True
+            except ImportError:
+                self._cb = lambda p: print(
+                    f"add: {p['output_rows']} rows" + (" done" if p["done"] else ""),
+                    file=sys.stderr,
+                )
+        elif callable(progress):
+            self._cb = progress
+        elif hasattr(progress, "update"):
+            self._bar = progress
+        else:
+            raise InvalidInputError(
+                "progress must be a callable, a tqdm-like object, or a bool"
+            )
+
+    def __call__(self, ev: dict) -> None:
+        stage = ev.get("stage")
+        rows = int(ev.get("rows", 0))
+        nbytes = int(ev.get("bytes", 0))
+        if stage == "start":
+            self._total = rows
+            if self._bar is not None and getattr(self._bar, "total", None) is None:
+                try:
+                    self._bar.total = rows
+                except AttributeError:  # a bar whose total is read-only
+                    pass
+            return
+        if stage in ("fragment", "committed"):
+            self._rows += rows
+            self._bytes += nbytes
+        done = stage == "committed"
+        elapsed = max(time.time() - self._t0, 1e-9)
+        if self._cb is not None:
+            self._cb({
+                "output_rows": self._rows,
+                "output_bytes": self._bytes,
+                "total_rows": self._total if self._total is not None else self._rows,
+                "elapsed_seconds": elapsed,
+                "active_tasks": 0 if done else 1,
+                "total_tasks": 1,
+                "done": done,
+            })
+        if self._bar is not None:
+            if rows:
+                self._bar.update(rows)
+            if hasattr(self._bar, "set_postfix_str"):
+                mbs = self._bytes / elapsed / 1e6
+                self._bar.set_postfix_str(f"{mbs:.1f} MB/s, 1 workers")
+            if hasattr(self._bar, "refresh"):
+                self._bar.refresh()
+            if done and self._own_bar and hasattr(self._bar, "close"):
+                self._bar.close()
+
+
 class Table(NotPortedSurface):
     """A handle on one table of a database."""
 
     _NOT_PORTED = {
         **dict.fromkeys(
-            ("update", "merge_insert", "query", "vector_search", "to_arrow", "head",
-             "take_offsets", "take_row_ids", "list_indices", "index_stats", "drop_index",
-             "prewarm_index", "wait_for_index", "create_index_async", "add_columns",
-             "alter_columns", "drop_columns", "merge", "list_versions", "checkout",
-             "checkout_latest", "restore", "tags", "create_branch", "checkout_branch",
-             "list_branches", "delete_branch", "diff_branch", "merge_branch", "optimize",
-             "compact_files", "cleanup_old_versions", "stats", "to_pandas", "to_polars",
-             "to_lance", "update_field_metadata", "declare_primary_key",
-             "set_unenforced_primary_key"),
-            "A4",
-        ),
-        **dict.fromkeys(
-            ("fetch_blobs", "fetch_blob_files", "fetch_blob_ranges", "set_lsm_write_spec",
-             "flush_lsm", "checkpoint_lsm", "compact_lsm", "lsm_stats",
-             "enable_sharded_serving"),
+            ("fetch_blobs", "fetch_blob_files", "fetch_blob_ranges", "blob_columns",
+             "set_lsm_write_spec", "get_lsm_write_spec", "unset_lsm_write_spec",
+             "describe_lsm_spec", "drop_lsm_spec", "close_lsm_writers", "flush_lsm",
+             "checkpoint_lsm", "compact_lsm", "lsm_stats", "get_lsm_stats",
+             "embedding_functions"),
             "A12",
         ),
+        **dict.fromkeys(("enable_sharded_serving", "disable_sharded_serving"), "A10"),
     }
 
     def __init__(self, connection, name: str, dataset: Dataset):
         self._conn = connection
         self.name = name
-        self._dataset = dataset
+        self.__dataset = dataset
         self._searchers: dict[str, Any] = {}
         self._fts_indexes: dict[str, Any] = {}
         # a batched hybrid search asks for the FTS index from several
         # threads at once: one of them loads it
         self._fts_lock = threading.Lock()
+        # serializes the read-consistency refresh and the cache
+        # invalidation it triggers between concurrent readers
+        self._refresh_lock = threading.Lock()
+        self._last_consistency_check = time.monotonic()
+        if connection._refresher is not None:
+            connection._refresher.register(self)
 
     @property
     def _device(self):
         return self._conn.device
 
+    @property
+    def _dataset(self) -> Dataset:
+        """The dataset, reloaded to the latest version first when the
+        connection's read-consistency interval has passed (reference
+        table.py:257-275): 0 checks on every read, None never."""
+        interval = self._conn.read_consistency_interval
+        if interval is not None and not self.__dataset.pinned:
+            if interval == 0 or time.monotonic() - self._last_consistency_check >= interval:
+                with self._refresh_lock:
+                    # another reader may have refreshed while this one waited
+                    if interval == 0 or (
+                        time.monotonic() - self._last_consistency_check >= interval
+                    ):
+                        self._refresh()
+        return self.__dataset
+
+    def _refresh(self) -> None:
+        """Load the latest manifest; drop the searchers if it moved. The
+        caller holds ``_refresh_lock``."""
+        old = self.__dataset.version
+        self.__dataset.checkout_latest()
+        self._last_consistency_check = time.monotonic()
+        if self.__dataset.version != old:
+            self._invalidate_caches()
+
+    def _background_refresh(self) -> None:
+        """Called by the connection's BackgroundRefresher (eventual
+        consistency, reference table.py:290-301)."""
+        if self.__dataset.pinned:
+            return
+        with self._refresh_lock:
+            self._refresh()
+
     def _invalidate_caches(self) -> None:
         self._searchers.clear()
         self._fts_indexes.clear()
-        self._conn.session.invalidate(self._dataset.root)
+        self._conn.session.invalidate(self.__dataset.root)
 
     @property
     def schema(self) -> pa.Schema:
@@ -116,6 +295,53 @@ class Table(NotPortedSurface):
     @property
     def version(self) -> int:
         return self._dataset.version
+
+    @property
+    def namespace(self) -> list[str]:
+        """The namespace path: empty, namespaces wait for ROADMAP A12."""
+        return []
+
+    @property
+    def id(self) -> str:
+        return self.name
+
+    @classmethod
+    def open(cls, db, name: str, **kw) -> "Table":
+        return db.open_table(name, **kw)
+
+    @classmethod
+    def create(cls, db, name: str, data=None, schema=None, **kw) -> "Table":
+        return db.create_table(name, data, schema, **kw)
+
+    def initial_storage_options(self) -> dict | None:
+        """The storage options the connection was opened with."""
+        return dict(self._conn.storage_options) or None
+
+    def latest_storage_options(self) -> dict | None:
+        """Fresh options from the connection's provider where it has one
+        (credential vending), else the initial ones."""
+        provider = self._conn.storage_options_provider
+        if provider is not None:
+            fresh = provider()
+            if fresh:
+                self._conn.storage_options = {**self._conn.storage_options, **fresh}
+                return dict(self._conn.storage_options)
+        return self.initial_storage_options()
+
+    def prewarm_data(self) -> None:
+        """Open every fragment's reader ahead of queries."""
+        ds = self._dataset
+        for frag in ds.manifest.fragments:
+            ds.reader(frag.id)
+
+    def migrate_v2_manifest_paths(self) -> None:
+        """Nothing to do: the dataset has one manifest path scheme."""
+
+    @property
+    def uri(self) -> str:
+        """Storage location of the table's dataset."""
+        base = self._conn.uri.rstrip("/")
+        return f"{base}/{self.name}.lance" if base else self.__dataset.root
 
     def __repr__(self) -> str:
         return f"Table(name={self.name!r}, version={self.version}, rows={self.count_rows()})"
@@ -126,6 +352,37 @@ class Table(NotPortedSurface):
     def count_rows(self, filter: str | None = None) -> int:
         return self._dataset.count_rows(filter)
 
+    # ----------------------------------------------------------- outputs
+
+    def to_arrow(self) -> pa.Table:
+        return self._dataset.to_table()
+
+    def to_pandas(self, flatten=None):
+        from .arrow import flatten_columns
+
+        return flatten_columns(self.to_arrow(), flatten).to_pandas()
+
+    def to_polars(self):
+        import polars as pl
+
+        return pl.from_arrow(self.to_arrow())
+
+    def head(self, n: int = 5) -> pa.Table:
+        return self._dataset.to_table(limit=n)
+
+    def to_lance(self) -> Dataset:
+        """The underlying dataset handle (the storage layer)."""
+        return self._dataset
+
+    def take_offsets(self, offsets: list[int]) -> pa.Table:
+        return self._dataset.take_offsets(np.asarray(offsets, dtype=np.int64))
+
+    def take_row_ids(self, row_ids: list[int]) -> pa.Table:
+        return self._dataset.take_rows(np.asarray(row_ids, dtype=np.uint64))
+
+    def stats(self) -> dict:
+        return self._dataset.stats()
+
     # ------------------------------------------------------------- write
 
     def add(
@@ -135,21 +392,80 @@ class Table(NotPortedSurface):
         *,
         on_bad_vectors: str = "error",
         fill_value: float = 0.0,
+        on_progress=None,
+        progress=None,
     ) -> None:
+        """Append (or overwrite with) rows. A RecordBatchReader, a
+        generator of batches, or a pyarrow dataset or scanner is appended
+        fragment by fragment in bounded memory, in one commit.
+        ``on_progress``: a callback(dict) per written batch; ``progress``:
+        a callback of the reference's progress dicts, a tqdm-like object,
+        or True for a bar."""
+        if progress is not None and progress is not False and on_progress is None:
+            on_progress = _ProgressAdapter(progress)
+        if mode == "append" and isinstance(data, (pads.Dataset, pads.Scanner)):
+            data = data.to_reader() if isinstance(data, pads.Scanner) else data.scanner().to_reader()
+        if mode == "append" and isinstance(data, (pa.RecordBatchReader, types.GeneratorType)):
+            def clean(batches):
+                for b in batches:
+                    t = pa.Table.from_batches([b]) if isinstance(b, pa.RecordBatch) else b
+                    yield sanitize_vectors(t, on_bad_vectors, fill_value)
+
+            self._dataset.append_stream(clean(data), on_batch=on_progress)
+            if on_progress is not None:
+                on_progress({"stage": "committed", "rows": 0, "bytes": 0,
+                             "version": self._dataset.version})
+            self._invalidate_caches()
+            return
         tbl = to_arrow_table(data, schema=self.schema if mode == "append" else None)
         tbl = sanitize_vectors(tbl, on_bad_vectors, fill_value)
+        if on_progress is not None:
+            on_progress({"stage": "start", "rows": tbl.num_rows, "bytes": tbl.nbytes})
         if mode == "append":
             self._dataset.append(tbl)
         elif mode == "overwrite":
             self._dataset.overwrite(tbl)
         else:
             raise InvalidInputError(f"unknown add mode {mode!r}")
+        if on_progress is not None:
+            on_progress({"stage": "committed", "rows": tbl.num_rows, "bytes": tbl.nbytes,
+                         "version": self._dataset.version})
         self._invalidate_caches()
 
     def delete(self, where: str) -> int:
         n = self._dataset.delete(where)
         self._invalidate_caches()
         return n
+
+    def update(
+        self,
+        where: str | None = None,
+        values: dict | None = None,
+        *,
+        values_sql: dict[str, str] | None = None,
+    ) -> dict:
+        """Update rows: ``values`` are Python literals, ``values_sql`` SQL
+        expressions. Matched rows are rewritten into a new fragment."""
+        updates: dict[str, str] = {}
+        for col, val in (values or {}).items():
+            if isinstance(val, str):
+                updates[col] = "'" + val.replace("'", "''") + "'"
+            elif val is None:
+                updates[col] = "NULL"
+            elif isinstance(val, bool):
+                updates[col] = "TRUE" if val else "FALSE"
+            else:
+                updates[col] = repr(val)
+        if values_sql:
+            updates.update(values_sql)
+        if not updates:
+            raise InvalidInputError("update requires values or values_sql")
+        stats = self._dataset.update(updates, where=where)
+        self._invalidate_caches()
+        return stats
+
+    def merge_insert(self, on: str | list[str]) -> MergeInsertBuilder:
+        return MergeInsertBuilder(self, on)
 
     # ------------------------------------------------------------ search
 
@@ -160,13 +476,19 @@ class Table(NotPortedSurface):
         query_type: str = "auto",
         fts_columns: list[str] | None = None,
     ) -> LanceQueryBuilder:
-        """Vector, full-text or hybrid search (reference table.py:640 →
-        LanceQueryBuilder.create): a vector, a string or FTS query node, or
-        a (vector, text) pair. Plain scans wait for a later slice (A4)."""
+        """Vector, full-text or hybrid search, or a plain scan for
+        ``query=None`` (reference table.py:640 → LanceQueryBuilder.create)."""
         return LanceQueryBuilder.create(
             self, query, query_type=query_type,
             vector_column_name=vector_column_name, fts_columns=fts_columns,
         )
+
+    def vector_search(self, vector) -> LanceVectorQueryBuilder:
+        return LanceVectorQueryBuilder(self, vector, None)
+
+    def query(self) -> LanceEmptyQueryBuilder:
+        """A plain scan: filter, projection, order, offset and limit."""
+        return LanceEmptyQueryBuilder(self)
 
     def _embed_query(self, text: str):
         """A text query with no vector needs the table's embedding function
@@ -181,6 +503,8 @@ class Table(NotPortedSurface):
 
         key = index_meta.uuid
         ds = self._dataset
+        # read, then assign: a concurrent invalidation between the two must
+        # not raise a KeyError
         s = self._searchers.get(key)
         if s is None:
             s = self._conn.session.get_or_load(
@@ -454,3 +778,259 @@ class Table(NotPortedSurface):
             self, query, columns=columns, k=k, offset=offset, filter=filter,
             prefilter=prefilter, select=select, with_row_id=with_row_id,
         )
+
+    # ------------------------------------------------- index management
+
+    def create_index_async(self, **kwargs):
+        """Build an index in the background; returns a Job (reference
+        index.rs:313). The build runs on the table's device."""
+        return self._conn._jobs.submit("create_index", lambda: self.create_index(**kwargs))
+
+    def list_indices(self) -> list[dict]:
+        return [
+            {"name": ix.name, "index_type": ix.index_type, "columns": list(ix.columns)}
+            for ix in self._dataset.manifest.indices
+        ]
+
+    def index_stats(self, index_name: str) -> dict | None:
+        ix = self._dataset.manifest.index_by_name(index_name)
+        if ix is None:
+            return None
+        covered = set(ix.fragment_ids)
+        unindexed = sum(
+            f.num_rows for f in self._dataset.manifest.fragments if f.id not in covered
+        )
+        return {
+            "num_indexed_rows": ix.num_indexed_rows,
+            "num_unindexed_rows": unindexed,
+            "index_type": ix.index_type,
+            "distance_type": ix.params.get("metric"),
+            "num_indices": 1,
+            # the build's scalar parameters
+            "params": {
+                k: v for k, v in ix.params.items()
+                if isinstance(v, (str, int, float, bool)) and k != "metric"
+            },
+        }
+
+    def drop_index(self, name: str) -> None:
+        self._dataset.drop_index(name)
+        self._invalidate_caches()
+
+    def prewarm_index(self, name: str) -> None:
+        """Load an index ahead of queries: a vector index's searcher onto
+        the table's device, an FTS index's postings into host memory."""
+        ix = self._dataset.manifest.index_by_name(name)
+        if ix is None:
+            raise IndexNotFoundError(name)
+        if ix.index_type in VECTOR_INDEX_TYPES:
+            self._get_searcher(ix)
+        elif ix.index_type == "FTS":
+            self._get_fts_index(ix)
+
+    def wait_for_index(self, index_names: list[str], timeout: float = 300.0) -> None:
+        """Poll until the named indexes exist (reference index/waiter.rs:16)."""
+        deadline = time.monotonic() + timeout
+        names = set(index_names)
+        while time.monotonic() < deadline:
+            if names <= {ix.name for ix in self._dataset.manifest.indices}:
+                return
+            time.sleep(0.1)
+        raise TimeoutError(f"indexes {names} not ready after {timeout}s")
+
+    # -------------------------------------------------- schema evolution
+
+    def add_columns(self, transforms: dict[str, str]) -> None:
+        self._dataset.add_columns(transforms)
+        self._invalidate_caches()
+
+    def alter_columns(self, *alterations: dict) -> None:
+        self._dataset.alter_columns(*alterations)
+        self._invalidate_caches()
+
+    def drop_columns(self, columns: list[str]) -> None:
+        self._dataset.drop_columns(columns)
+        self._invalidate_caches()
+
+    def merge(self, other_table, left_on: str, right_on: str | None = None, schema=None) -> None:
+        """Left-join another table's columns onto this one (reference
+        table.py:3324); rows without a match get nulls."""
+        if isinstance(other_table, Table):
+            other = other_table.to_arrow()
+        else:
+            other = to_arrow_table(other_table, schema=schema)
+        self._dataset.merge(other, left_on, right_on)
+        self._invalidate_caches()
+
+    def update_field_metadata(self, field_name: str, new_metadata: dict) -> None:
+        """Replace one field's schema metadata."""
+        self._dataset.update_field_metadata(field_name, new_metadata)
+        self._invalidate_caches()
+
+    replace_field_metadata = update_field_metadata
+
+    # ------------------------------------------------------- time travel
+
+    def list_versions(self) -> list[dict]:
+        return [v.to_dict() for v in self._dataset.list_versions()]
+
+    def checkout(self, version: int | str) -> None:
+        """Pin the table to a version (or a tag's version): reads see it,
+        writes are refused until checkout_latest(). Searches load that
+        version's indexes onto the device; the searchers of the version
+        left are dropped."""
+        if isinstance(version, str):
+            self._dataset.checkout_tag(version)
+        else:
+            self._dataset.checkout(version)
+        self._invalidate_caches()
+
+    def checkout_latest(self) -> None:
+        self._dataset.checkout_latest()
+        self._invalidate_caches()
+
+    def restore(self, version: int | None = None) -> None:
+        """Commit the checked-out (or the given) version as the latest."""
+        if version is not None:
+            self.checkout(version)
+        self._dataset.restore()
+        self._invalidate_caches()
+
+    @property
+    def tags(self) -> Tags:
+        return Tags(self)
+
+    # ---------------------------------------------------------- branches
+
+    def create_branch(self, name: str, version: int | None = None) -> None:
+        self._dataset.create_branch(name, version)
+
+    def checkout_branch(self, name: str) -> None:
+        self._dataset.checkout_branch(name)
+        self._invalidate_caches()
+
+    def list_branches(self) -> dict:
+        return self._dataset.list_branches()
+
+    @property
+    def branches(self) -> dict:
+        return self.list_branches()
+
+    def delete_branch(self, name: str) -> None:
+        self._dataset.delete_branch(name)
+
+    def diff_branch(self, name: str) -> dict:
+        return self._dataset.diff_branch(name)
+
+    def merge_branch(self, name: str) -> dict:
+        out = self._dataset.merge_branch(name)
+        self._invalidate_caches()
+        return out
+
+    @property
+    def current_branch(self) -> str:
+        return self._dataset.branch
+
+    # ------------------------------------------------------- primary key
+
+    def declare_primary_key(self, columns: list[str] | str) -> None:
+        """Record an unenforced primary key in the table's config
+        (reference table.rs:673)."""
+        cols = [columns] if isinstance(columns, str) else list(columns)
+        for c in cols:
+            if c not in self.schema.names:
+                raise InvalidInputError(f"unknown column {c!r}")
+
+        def build(current):
+            draft = current.child("declare_primary_key", columns=cols)
+            draft.config["primary_key"] = cols
+            return draft
+
+        self._dataset._commit_with_rebase(build)
+
+    set_unenforced_primary_key = declare_primary_key
+
+    @property
+    def primary_key(self) -> list[str] | None:
+        return self._dataset.manifest.config.get("primary_key")
+
+    # ---------------------------------------------------------- optimize
+
+    def optimize(
+        self,
+        cleanup_older_than: float | None = None,
+        delete_unverified: bool = False,
+        retrain: bool = False,
+    ) -> dict:
+        """Compact fragments, rebuild stale indexes (vector indexes on the
+        table's device), optionally prune old versions (reference
+        OptimizeAction::All, table/optimize.rs:30-75)."""
+        compact = self._dataset.compact_files()
+        rebuilt = self._reindex_stale()
+        prune = {}
+        if cleanup_older_than is not None:
+            prune = self._dataset.prune_versions(
+                keep_latest=1, older_than_seconds=cleanup_older_than
+            )
+        self._invalidate_caches()
+        return {"compaction": compact, "prune": prune, "indices_rebuilt": rebuilt}
+
+    def _reindex_stale(self) -> int:
+        """Rebuild every index whose fragments are not the live ones. A
+        vector index is rebuilt from ``_config_from_params``, as the
+        reference rebuilds it (ROADMAP §C: the settings it drops)."""
+        from .index.fts import build_fts_index
+        from .index.scalar import build_scalar_index
+        from .index.vector import build_vector_index
+
+        ds = self._dataset
+        live = {f.id for f in ds.manifest.fragments}
+        rebuilt = 0
+        for ix in list(ds.manifest.indices):
+            if set(ix.fragment_ids) == live:
+                continue
+            rebuilt += 1
+            if ix.index_type in VECTOR_INDEX_TYPES:
+                meta = build_vector_index(ds, ix.columns[0],
+                                          _config_from_params(ix.index_type, ix.params),
+                                          name=ix.name, device=self._device)
+            elif ix.index_type == "FTS":
+                cfg = FTS(**{k: v for k, v in ix.params.items()
+                             if k in FTS.__dataclass_fields__ and k != "index_type"})
+                meta = build_fts_index(ds, ix.columns, cfg, name=ix.name)
+            elif ix.index_type in SCALAR_INDEX_TYPES:
+                cfg = {"BTREE": BTree, "BITMAP": Bitmap, "LABEL_LIST": LabelList,
+                       "FM": Fm}[ix.index_type]()
+                meta = build_scalar_index(ds, ix.columns[0], cfg, name=ix.name)
+            else:
+                continue
+            ds.add_index(meta, replace=True)
+        return rebuilt
+
+    def compact_files(self) -> dict:
+        out = self._dataset.compact_files()
+        self._invalidate_caches()
+        return out
+
+    def cleanup_old_versions(self, older_than_seconds: float = 0.0,
+                             delete_unverified: bool = False) -> dict:
+        return self._dataset.prune_versions(keep_latest=1, older_than_seconds=older_than_seconds)
+
+
+def _config_from_params(index_type: str, params: dict):
+    """The config ``optimize()`` rebuilds a vector index with: the
+    reference's (table.py:1358-1378), which passes on only the metric, the
+    partitions and, for IVF_PQ, the subvectors and bits, and rebuilds every
+    other type (the IVF_HNSW ones among them) as FLAT."""
+    common = dict(distance_type=params.get("metric", "l2"),
+                  num_partitions=params.get("num_partitions"))
+    if index_type == "IVF_PQ":
+        return IvfPq(**common, num_sub_vectors=params.get("num_sub_vectors"),
+                     num_bits=params.get("num_bits", 8))
+    if index_type == "IVF_FLAT":
+        return IvfFlat(**common)
+    if index_type == "IVF_SQ":
+        return IvfSq(**common)
+    if index_type == "IVF_RQ":
+        return IvfRq(**common)
+    return Flat(distance_type=params.get("metric", "l2"))

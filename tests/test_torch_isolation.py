@@ -76,6 +76,28 @@ assert ivf_pq_adc_grouped_scan(*args).shape == (8, 3, 128)
 assert adc_sum(args[1], args[2], 5, "select").shape == (5, 128)
 x, idx = ab_gather_min.make_inputs(8, 128, 1)
 assert smem_gather(torch.from_numpy(x), torch.from_numpy(idx), 1).shape == (8, 128)
+# the lifecycle: upsert, update, optimize, time travel, plain scans, plans,
+# jobs, the background refresher and the async surface
+import asyncio
+from lancedb_tpu_torch import aio, jobs, session
+tbl.merge_insert("id").when_matched_update_all().when_not_matched_insert_all().execute(
+    pa.table({"id": [7, 900], "category": [1, 2], "text": ["alpha", "beta"],
+              "vector": pa.FixedSizeListArray.from_arrays(pa.array(np.zeros(32, np.float32)), 16)}))
+tbl.update(where="category = 3", values={"category": 42})
+assert tbl.optimize()["indices_rebuilt"] >= 1 and tbl.count_rows() == 601
+v = tbl.version
+tbl.checkout(v - 1); tbl.checkout_latest()
+assert tbl.query().where("category = 42").to_arrow().num_rows == 60
+assert "ANNSubIndexExec" in tbl.search(np.ones(16, np.float32)).analyze_plan()
+assert tbl.create_index_async(index_type="FLAT").wait(timeout=60) is None
+db2 = lancedb_tpu_torch.connect(sys.argv[1], device="cpu", read_consistency_interval=0.1)
+db2.open_table("t")
+db2.close()
+assert db2._refresher.stop(timeout=5)
+async def _count():
+    t = await (await lancedb_tpu_torch.connect_async(sys.argv[1], device="cpu")).open_table("t")
+    return await t.count_rows()
+assert asyncio.run(asyncio.wait_for(_count(), 60)) == 601
 assert not any(m == "jax" or m.startswith(("jax.", "lancedb_tpu."))
                for m, mod in sys.modules.items() if mod is not None)
 print("ok")
@@ -125,11 +147,16 @@ def test_unported_surface_names_its_roadmap_item(tmp_path):
     }))
     assert db.table_names() == ["t"] and db.open_table("t").count_rows() == 4
     for call, item in (
-        (lambda: tbl.update(where="id = 1", values={"id": 2}), "A4"),
         (lambda: tbl.search("some text", query_type="vector"), "A12"),
-        (lambda: tbl.search(x[0]).to_pandas(), "A4"),
-        (lambda: db.drop_table("t"), "A4"),
         (lambda: tbl.search(x[0]).use_lsm(), "A12"),
+        (lambda: tbl.query().use_lsm(), "A12"),
+        (lambda: tbl.merge_insert("id").use_lsm(), "A12"),
+        (lambda: tbl.search(x[0]).to_pydantic(dict), "A12"),
+        (lambda: tbl.fetch_blobs("vector", [0]), "A12"),
+        (lambda: tbl.set_lsm_write_spec(), "A12"),
+        (lambda: tbl.embedding_functions, "A12"),
+        (lambda: db.sql("SELECT 1"), "A12"),
+        (lambda: tbl.enable_sharded_serving(), "A10"),
     ):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             call()

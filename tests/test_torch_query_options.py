@@ -257,13 +257,23 @@ def test_hybrid_option_matches_reference(tables, case):
 
 
 def test_unported_surface_still_names_a4(tables):
-    port, _ = tables()
-    for call in (
-        lambda: port.update(where="id = 1", values={"id": 2}),
-        lambda: port.merge_insert("id"),
-        lambda: port.search(None),
-        lambda: port.search(Q[0]).to_pandas(),
-        lambda: port.to_pandas(),
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            call()
+    """No refusal names A4 any more: the surface that raised it here
+    (update, merge_insert, plain scans, the builders' and the table's
+    to_pandas) is served since the lifecycle slice and gives the
+    reference's results (tests/test_torch_table_api.py holds each in
+    full). Nothing here writes to the shared table."""
+    from lancedb_tpu_torch import aio, db, query, table
+
+    port, ref = tables()
+    classes = [c for m in (aio, db, query, table) for c in vars(m).values()
+               if isinstance(c, type) and "_NOT_PORTED" in vars(c)]
+    assert classes and all("A4" not in c._NOT_PORTED.values() for c in classes)
+    for t in (port, ref):
+        with pytest.raises(Exception, match="update requires values"):
+            t.update(where="id = 1")
+    assert type(port.merge_insert("id")).__name__ == type(ref.merge_insert("id")).__name__
+    assert port.search(None).where("id < 5").to_arrow().equals(
+        ref.search(None).where("id < 5").to_arrow())
+    _assert_same(pa.Table.from_pandas(port.search(Q[0]).nprobes(4).to_pandas()),
+                 pa.Table.from_pandas(ref.search(Q[0]).nprobes(4).to_pandas()))
+    assert port.to_pandas()["id"].tolist() == ref.to_pandas()["id"].tolist()
