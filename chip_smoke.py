@@ -6,7 +6,8 @@
     python3 chip_smoke.py --phase hnsw    # path e alone (or --phase large_d: path d;
                                           # --phase fts: path f; --phase
                                           # vector_family: path g; --phase
-                                          # lifecycle: path h)
+                                          # lifecycle: path h; --phase mesh:
+                                          # path i)
     python3 chip_smoke.py --out smoke.json # also write the full summary as JSON
 
 Phases:
@@ -137,6 +138,32 @@ Phases:
      same search through connect_async. Every truth comes from a host
      model of the rows and exact f32 top-k on the card; B1's launches are
      counted per stage and must be > 0 in each.
+  8. path i, the device mesh (--phase mesh alone): BASELINE config #5's
+     sharded IVF_PQ at DEEP's widths, 10,000,000 x 96 make_clustered rows
+     (seed 0, id and category = id % 10; the BASELINE's 100M cut to 10M)
+     and 256 queries: create_index(IVF_PQ 4096 partitions, 8-bit x12) with
+     build seconds and peak memory; exact f32 truth on the card; nprobes 20
+     raw, refine_factor(10) and where("category = 3") on one device, then
+     through enable_sharded_serving on a mesh of cuda:0 once and four times
+     (the 1-shard mesh within 9 of 10 ids a query, mean overlap 0.99 and
+     distances 1e-3 of one device; the 4-shard mesh's recall at least one
+     device's less 0.01, with 4 times the 1-shard mesh's B1 launches);
+     delete("id % 1000 = 0") and the raw search again (no deleted id);
+     B1 held to its plain version on shard 0's inputs (the dealt codes with
+     the deletion penalty, the budget's probes, 128 queries); device memory
+     back within one searcher after disable_sharded_serving(); the feed
+     (StreamingDataset over the table into TorchBatchFeeder, batches of
+     4096 on the 1- and the 4-device mesh: rows/s over 2,000,000 rows, every
+     tensor on the card, sampled batches equal to the host's rows, and the
+     state after 100 batches resuming the run's next 10 exactly); the
+     distributed build (ShardedIvfPqIndex on the 4-shard mesh, raw recall
+     at least one device's less 0.03, and its fused refine); ShardedFlatIndex
+     over the 10M rows (recall at least a plain bf16 brute force's less
+     0.01, top-10 equal to the 1-shard flat's on >= 99 % of ids; its
+     products are bf16, as the reference's are on the TPU);
+     make_sharded_ivf_search over the first 1,000,000
+     rows with 1024 distributed_kmeans partitions at nprobes 20 (recall >=
+     0.95). B1's launches are counted from 0 for each search.
 
 Prints, on lines before the last, the card's name and power limit, a
 ``kernels:`` line and one JSON object ``{"kernels": [...]}``; the last
@@ -1358,13 +1385,14 @@ def kernel_phases(phase: str, card: str) -> tuple[dict, list[dict]]:
         summary["large_d"], large_d_kernels = large_d_path(card)
         summary["fts"], fts_kernels = fts_phase(card)
         summary["lifecycle"], lifecycle_kernels = lifecycle_phase(card)
+        summary["mesh"], mesh_kernels = mesh_phase(card)
         counts: dict = {}  # launches on the main path, per kernel
         for r in main_kernels:
             counts[r["counter"]] = counts.get(r["counter"], 0) + r["launches"]
         for r in grouped + flat_line:
             r["launches"] = counts[r["counter"]]
-        kernels = (main_kernels + large_d_kernels + fts_kernels + lifecycle_kernels + grouped
-                   + flat_line)
+        kernels = (main_kernels + large_d_kernels + fts_kernels + lifecycle_kernels + mesh_kernels
+                   + grouped + flat_line)
     kernels += probe_kernels
     return summary, kernels
 
@@ -2454,13 +2482,421 @@ def lifecycle_phase(card: str) -> tuple[dict, list[dict]]:
     return results, [krec]
 
 
+# ---------------------------------------------------------------- path i
+# BASELINE config #5's sharded IVF_PQ at DEEP's widths (Deep1B, 96-d f32;
+# big-ann-benchmarks serves 10M and 100M subsets), cut from 100M to 10M rows
+MESH_ROWS, MESH_DIM, MESH_QUERIES = 10_000_000, 96, 256
+MESH_PARTITIONS, MESH_NSUB = 4096, 12
+MESH_DEVICE = "cuda:0"
+MESH_IVF_ROWS, MESH_IVF_PARTITIONS = 1_000_000, 1024
+FEED_ROWS, FEED_BATCH = 2_000_000, 4096
+
+
+def exact_topk_chunked(x_d, q: np.ndarray, k: int, mask_d=None, chunk: int = 1 << 20,
+                       bf16: bool = False):
+    """Exact f32 top-k l2 ids on the card (TF32 off), a chunk of rows at a
+    time so the (Q, chunk) distances stay bounded. ``bf16``: the products
+    take q and x rounded to bf16 (f32 norms), as a bf16 brute force does."""
+    import torch
+
+    from lancedb_tpu_torch.ops.util import lowp
+
+    qd = torch.from_numpy(q).to(x_d.device)
+    if bf16:
+        qd = lowp(qd)
+    best_v = best_i = None
+    for s in range(0, x_d.shape[0], chunk):
+        xc = x_d[s : s + chunk]
+        d = torch.sum(xc * xc, dim=1)[None, :] - 2.0 * (qd @ (lowp(xc) if bf16 else xc).T)
+        if mask_d is not None:
+            d = torch.where(mask_d[None, s : s + chunk], d, float("inf"))
+        v, i = torch.topk(d, min(k, d.shape[1]), dim=1, largest=False)
+        i = i + s
+        if best_v is not None:
+            v, pos = torch.topk(torch.cat([best_v, v], 1), k, dim=1, largest=False)
+            i = torch.gather(torch.cat([best_i, i], 1), 1, pos)
+        best_v, best_i = v, i
+    return best_i.cpu().numpy()
+
+
+def overlap_check(label: str, got_ids, got_d, want_ids, want_d) -> dict:
+    """A mesh's hits against the single-device searcher's: >= 9 of 10 ids
+    a query, mean overlap >= 0.99, sorted distances within 1e-3."""
+    per_q = np.array([len(set(a.tolist()) & set(b.tolist())) for a, b in zip(got_ids, want_ids)])
+    worst_d = float(np.max(np.abs(np.sort(got_d, 1) - np.sort(want_d, 1))))
+    out = {"min_overlap": int(per_q.min()), "mean_overlap": float(per_q.mean() / 10),
+           "max_sorted_distance_diff": worst_d}
+    if per_q.min() < 9 or per_q.mean() / 10 < 0.99 or worst_d > 1e-3:
+        raise AssertionError(f"{label}: the 1-shard mesh disagrees with one device: {out}")
+    return out
+
+
+def batch_hits(out, nq: int, k: int = 10):
+    """(ids (nq, k), distances (nq, k), categories of every hit) of a batch."""
+    qi = np.asarray(out.column("query_index"))
+    ids = np.full((nq, k), -1, np.int64)
+    dist = np.full((nq, k), np.inf, np.float32)
+    col_i, col_d = np.asarray(out.column("id")), np.asarray(out.column("_distance"))
+    for q in range(nq):
+        m = qi == q
+        ids[q, : m.sum()] = col_i[m][:k]
+        dist[q, : m.sum()] = col_d[m][:k]
+    return ids, dist, np.asarray(out.column("category"))
+
+
+def mesh_searches(tbl, queries, cases, gt_of) -> dict:
+    """Each case (name, refine_factor, where): B1's count set to 0, one warm
+    call, the median host ms of 3 more, then the count read; recall@10 of
+    the last against its truth."""
+    import torch
+
+    from lancedb_tpu_torch.ops import adc
+
+    out = {}
+    for name, rf, where in cases:
+        def run():
+            s = tbl.search(queries).nprobes(20).limit(10).select(["id", "category"])
+            if rf:
+                s = s.refine_factor(rf)
+            if where:
+                s = s.where(where)
+            t = time.perf_counter()
+            res = s.to_arrow()
+            torch.cuda.synchronize()
+            return res, (time.perf_counter() - t) * 1e3
+
+        adc.reset_launch_counts()
+        run()  # loads the searcher (and the refine table)
+        reps = [run() for _ in range(3)]
+        launches = adc.launch_counts["ivf_pq_adc_scan"]
+        ids, dist, cats = batch_hits(reps[-1][0], len(queries))
+        if where is not None and not np.all(cats == 3):
+            raise AssertionError(f"mesh {name}: a filtered hit has category != 3")
+        if launches <= 0:
+            raise AssertionError(f"mesh {name}: B1 was not launched")
+        out[name] = {"recall@10": recall(ids, gt_of[name]),
+                     "ms_per_256q_batch": float(np.median([r[1] for r in reps])),
+                     "b1_launches": launches, "ids": ids, "distances": dist}
+    return out
+
+
+def public(res: dict) -> dict:
+    """A search summary without its id and distance arrays."""
+    return {name: {k: v for k, v in r.items() if k not in ("ids", "distances")}
+            for name, r in res.items()}
+
+
+def feed_rows(batch):
+    """StreamingDataset transform of the feed: one dict of numpy values a row."""
+    from lancedb_tpu_torch.arrow import fsl_to_numpy
+
+    vec = fsl_to_numpy(batch.column("vector"))
+    ids = batch.column("id").to_numpy()
+    return [{"vector": v, "id": i} for v, i in zip(vec, ids)]
+
+
+def feed_path(tbl, mesh, label: str, card: str) -> dict:
+    """TorchBatchFeeder over the table on ``mesh``: rows/s over FEED_ROWS,
+    every tensor on the card, sampled batches equal to the host's rows,
+    and the resume after 100 batches bit for bit."""
+    import itertools
+
+    import torch
+
+    from lancedb_tpu_torch.arrow import fsl_to_numpy
+    from lancedb_tpu_torch.data import StreamingDataset, TorchBatchFeeder
+
+    def feeder():
+        sds = StreamingDataset(tbl, columns=["vector", "id"], read_batch_size=FEED_BATCH,
+                               transform=feed_rows)
+        return TorchBatchFeeder(sds, FEED_BATCH, mesh=mesh, columns=["vector", "id"])
+
+    def host_cat(batch):
+        return {k: (torch.cat(v) if isinstance(v, list) else v).cpu() for k, v in batch.items()}
+
+    n_batches = -(-FEED_ROWS // FEED_BATCH)
+    f = feeder()
+    it = iter(f)
+    t = time.perf_counter()
+    batches = list(itertools.islice(it, n_batches))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    it.close()
+    n_dev = mesh.size
+    for b in batches:
+        for col in b.values():
+            parts = col if isinstance(col, list) else [col]
+            if len(parts) != n_dev or any(p.device != torch.device(MESH_DEVICE) for p in parts):
+                raise AssertionError(f"feed {label}: a batch is not on the mesh's cards")
+    for bi in (0, 1, n_batches // 2, n_batches - 1):
+        got = host_cat(batches[bi])
+        want = tbl._dataset.take_offsets(np.arange(bi * FEED_BATCH, (bi + 1) * FEED_BATCH),
+                                         columns=["vector", "id"])
+        if not (np.array_equal(got["vector"].numpy(), fsl_to_numpy(want.column("vector")))
+                and np.array_equal(got["id"].numpy(), want.column("id").to_numpy())):
+            raise AssertionError(f"feed {label}: batch {bi} differs from the host's rows")
+    del batches
+    # resume: the state after 100 batches gives the uninterrupted run's next 10
+    f = feeder()
+    it = iter(f)
+    for _ in range(100):
+        next(it)
+    state = f.state_dict()
+    want = [host_cat(next(it)) for _ in range(10)]
+    it.close()
+    f2 = feeder()
+    f2.load_state_dict(state)
+    got = [host_cat(b) for b in itertools.islice(iter(f2), 10)]
+    same = len(got) == 10 and all(torch.equal(g[k], w[k]) for g, w in zip(got, want) for k in w)
+    if not same:
+        raise AssertionError(f"feed {label}: the resumed feeder does not continue the run")
+    rec = {"rows": n_batches * FEED_BATCH, "seconds": secs,
+           "rows_per_s": n_batches * FEED_BATCH / secs, "devices": n_dev,
+           "resume_after_100_batches_exact": True}
+    print(f"[mesh] feed {label} ({card}): {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def mesh_path(card: str) -> tuple[dict, dict]:
+    """Path i: config #5's sharded IVF_PQ at DEEP's widths, served through
+    enable_sharded_serving on a 1-shard and a 4-shard mesh of the one card,
+    the distributed build, sharded FLAT and IVF_FLAT search, B1 on one
+    shard's inputs, and the training feed. Returns (summary, B1's record)."""
+    import gc
+    import itertools
+
+    import pyarrow as pa
+    import torch
+
+    import lancedb_tpu_torch
+    from lancedb_tpu_torch.data import StreamingDataset
+    from lancedb_tpu_torch.index import IvfPq
+    from lancedb_tpu_torch.index.vector import SearchParams
+    from lancedb_tpu_torch.ops import adc
+    from lancedb_tpu_torch.ops.util import round_up
+    from lancedb_tpu_torch.parallel import (ShardedFlatIndex, ShardedIvfPqIndex,
+                                            distributed_kmeans, make_mesh,
+                                            make_sharded_ivf_search, replicate, shard_rows)
+    from lancedb_tpu_torch.probes.common import make_clustered
+    from lancedb_tpu_torch.query import _deleted_rowids
+    from lancedb_tpu_torch.session import _searcher_nbytes
+
+    n, dim, nq, k = MESH_ROWS, MESH_DIM, MESH_QUERIES, 10
+    rec: dict = {"card": card, "rows": n, "dim": dim, "queries": nq}
+    t0 = time.perf_counter()
+    x, queries = make_clustered(np.random.default_rng(0), n, dim, n_queries=nq)
+    ids = np.arange(n, dtype=np.int64)
+    rec["data_s"] = time.perf_counter() - t0
+    x_d = torch.from_numpy(x).to(MESH_DEVICE)
+    cat3_d = torch.from_numpy(ids % 10 == 3).to(MESH_DEVICE)
+    gt = exact_topk_chunked(x_d, queries, k)
+    gt_f = exact_topk_chunked(x_d, queries, k, cat3_d)
+    gt_del = exact_topk_chunked(x_d, queries, k, torch.from_numpy(ids % 1000 != 0).to(MESH_DEVICE))
+    gt_ivf = exact_topk_chunked(x_d[:MESH_IVF_ROWS], queries, k)
+    # the bar of the sharded FLAT scan, whose products are bf16: a plain
+    # bf16 brute force of the same rows (at 10M rows about 150 rows share
+    # each parent cluster, more than bf16 can order)
+    bf16_recall = recall(exact_topk_chunked(x_d, queries, k, bf16=True), gt)
+    del x_d, cat3_d
+    torch.cuda.empty_cache()
+    truth = {"raw": gt, "refined": gt, "filtered": gt_f, "raw_after_delete": gt_del}
+    mesh1 = make_mesh(devices=[MESH_DEVICE])
+    mesh4 = make_mesh(devices=[MESH_DEVICE] * 4)
+    cases = [("raw", None, None), ("refined", 10, None), ("filtered", None, "category = 3")]
+    b1_total = 0
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        db = lancedb_tpu_torch.connect(tmp)
+        t0 = time.perf_counter()
+        tbl = db.create_table("deep10m_like", pa.table({
+            "id": ids, "category": ids % 10,
+            "vector": pa.FixedSizeListArray.from_arrays(pa.array(x.ravel()), dim),
+        }))
+        rec["create_table_s"] = time.perf_counter() - t0
+        # 1. the index on one device
+        torch.cuda.reset_peak_memory_stats()
+        _, rec["build_s"] = timed(lambda: tbl.create_index(config=IvfPq(
+            num_partitions=MESH_PARTITIONS, num_sub_vectors=MESH_NSUB, num_bits=8)))
+        rec["build_peak_mem_bytes"] = int(torch.cuda.max_memory_allocated())
+        print(f"[mesh] built ({card}): {json.dumps(rec)}", flush=True)
+        # 3. one device, then 4. the 1-shard and the 4-shard mesh
+        res = {"single": mesh_searches(tbl, queries, cases, truth)}
+        for label, mesh in (("mesh1", mesh1), ("mesh4", mesh4)):
+            tbl.enable_sharded_serving(mesh)
+            res[label] = mesh_searches(tbl, queries, cases, truth)
+        tbl.disable_sharded_serving()
+        checks = {}
+        for name, _, _ in cases:
+            s, m1, m4 = res["single"][name], res["mesh1"][name], res["mesh4"][name]
+            checks[name] = overlap_check(f"mesh1 {name}", m1["ids"], m1["distances"],
+                                         s["ids"], s["distances"])
+            if m4["recall@10"] < s["recall@10"] - 0.01:
+                raise AssertionError(f"mesh4 {name}: recall {m4['recall@10']} < "
+                                     f"{s['recall@10']} - 0.01")
+            if m4["b1_launches"] != 4 * m1["b1_launches"]:
+                raise AssertionError(f"mesh4 {name}: {m4['b1_launches']} B1 launches, not 4 x "
+                                     f"{m1['b1_launches']}")
+        b1_total += sum(r[name]["b1_launches"] for r in res.values() for name, _, _ in cases)
+        # deletions, then the raw search on one device and on both meshes
+        tbl.delete("id % 1000 = 0")
+        after = [("raw_after_delete", None, None)]
+        res["single"].update(mesh_searches(tbl, queries, after, truth))
+        single = tbl._get_searcher(tbl._dataset.manifest.indices[0])
+        mem_single = torch.cuda.memory_allocated()
+        # one raw searcher call of each under torch.profiler: the card's
+        # busy time and idle share, the four shards' launches serialised
+        raw_params = SearchParams(k=k, nprobes=20)
+        profiles = {"single": profile_search(single, queries, raw_params)}
+        for label, mesh in (("mesh1", mesh1), ("mesh4", mesh4)):
+            tbl.enable_sharded_serving(mesh)
+            res[label].update(mesh_searches(tbl, queries, after, truth))
+            profiles[label] = profile_search(next(iter(tbl._searchers.values())), queries,
+                                             raw_params)
+        rec["profiled_searcher_raw"] = profiles
+        s, m1, m4 = (res[m]["raw_after_delete"] for m in ("single", "mesh1", "mesh4"))
+        checks["raw_after_delete"] = overlap_check("mesh1 after delete", m1["ids"],
+                                                   m1["distances"], s["ids"], s["distances"])
+        for label, r in (("single", s), ("mesh1", m1), ("mesh4", m4)):
+            if np.any((r["ids"] % 1000 == 0) & (r["ids"] >= 0)):
+                raise AssertionError(f"{label}: a deleted id was returned")
+        if m4["recall@10"] < s["recall@10"] - 0.01 or m4["b1_launches"] != 4 * m1["b1_launches"]:
+            raise AssertionError(f"mesh4 after delete: {public({'mesh4': m4, 'single': s})}")
+        b1_total += sum(r["b1_launches"] for r in (s, m1, m4))
+        # 7. B1 on one shard's inputs: the dealt codes with the deletion
+        # penalty added, the budget's probes, 128 queries
+        sharded = next(iter(tbl._searchers.values()))._sharded
+        deleted, vanished = _deleted_rowids(tbl._dataset, tbl._dataset.manifest.indices[0],
+                                            next(iter(tbl._searchers.values())))
+        pen = sharded.dealt_penalty(sharded.slot_penalty(None, deleted, vanished))
+        q128 = torch.from_numpy(queries[:128]).to(MESH_DEVICE)
+        b1_args_shard, _, _ = sharded._scan_inputs(0, 0, q128, q128, pen,
+                                                   sharded.block_nprobes(20))
+        krec = check_adc(b1_args_shard, "mesh4 shard 0 (after the deletions)")
+        del b1_args_shard, pen, sharded
+        tbl.disable_sharded_serving()
+        gc.collect()
+        mem_after = torch.cuda.memory_allocated()
+        rec["memory"] = {"with_single_searcher_bytes": mem_single,
+                         "after_disable_bytes": mem_after,
+                         "one_searcher_bytes": _searcher_nbytes(single)}
+        if abs(mem_after - mem_single) > _searcher_nbytes(single):
+            raise AssertionError(f"mesh: device memory not released: {rec['memory']}")
+        del single
+        tbl._invalidate_caches()
+        torch.cuda.empty_cache()
+        rec["searches"] = {label: public(r) for label, r in res.items()}
+        rec["mesh1_vs_single"] = checks
+        print(f"[mesh] searches ({card}): {json.dumps(rec['searches'])}", flush=True)
+        print(f"[mesh] profiled raw searcher calls ({card}): {json.dumps(profiles)}", flush=True)
+
+        # 8. the feed: StreamingDataset over the table, to the card; then
+        # the host read alone (the dataset without the feeder), warm as well
+        rec["feed"] = {label: feed_path(tbl, mesh, label, card)
+                       for label, mesh in (("mesh1", mesh1), ("mesh4", mesh4))}
+        sds = StreamingDataset(tbl, columns=["vector", "id"], read_batch_size=FEED_BATCH,
+                               transform=feed_rows)
+        t0 = time.perf_counter()
+        n_read = sum(1 for _ in itertools.islice(iter(sds), FEED_ROWS // 4))
+        rec["feed_host_read_rows_per_s"] = n_read / (time.perf_counter() - t0)
+
+        # 5. the distributed build on the 4-shard mesh
+        adc.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        six, rec["distributed_build_s"] = timed(lambda: ShardedIvfPqIndex(
+            mesh4, x, ids.view(np.uint64), MESH_PARTITIONS, MESH_NSUB))
+        rec["distributed_build_peak_mem_bytes"] = int(torch.cuda.max_memory_allocated())
+        (d_v, d_ids), ms = timed(lambda: six.search(queries, k=k, nprobes=20), 3)
+        dist = {"raw": {"recall@10": recall(d_ids.astype(np.int64), gt), "ms": ms * 1e3}}
+        slot_ids = six.row_ids.astype(np.int64)
+        live = slot_ids >= 0
+        vecs = np.zeros((six.num_slots, dim), np.float32)
+        vecs[live] = x[slot_ids[live]]
+        six.attach_refine_table(vecs, np.sum(vecs.astype(np.float64) ** 2, 1).astype(np.float32))
+        del vecs
+        (_, r_ids), ms = timed(lambda: six.search(queries, k=100, nprobes=20, refine_k=k), 3)
+        dist["refined"] = {"recall@10": recall(r_ids.astype(np.int64), gt), "ms": ms * 1e3}
+        dist["b1_launches"] = adc.launch_counts["ivf_pq_adc_scan"]
+        b1_total += dist["b1_launches"]
+        if dist["b1_launches"] <= 0:
+            raise AssertionError("distributed build: B1 was not launched")
+        bar = res["single"]["raw"]["recall@10"] - 0.03
+        if dist["raw"]["recall@10"] < bar:
+            raise AssertionError(f"distributed build: raw recall {dist['raw']} < {bar}")
+        rec["distributed"] = dist
+        print(f"[mesh] distributed build ({card}): {json.dumps(dist)} "
+              f"{rec['distributed_build_s']:.3f} s", flush=True)
+        del six, tbl, db
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 6. sharded FLAT over the 10M rows, and sharded IVF_FLAT over 1M
+    flat, flat_ids = {}, {}
+    for label, mesh in (("mesh4", mesh4), ("mesh1", mesh1)):
+        idx = ShardedFlatIndex(mesh, x, ids)
+        (_, f_ids), ms = timed(lambda: idx.search(queries, k), 3)
+        flat_ids[label] = f_ids.astype(np.int64)
+        flat[label] = {"recall@10": recall(flat_ids[label], gt), "ms": ms * 1e3}
+        del idx
+        torch.cuda.empty_cache()
+    flat["mesh4_vs_mesh1_overlap"] = recall(flat_ids["mesh4"], flat_ids["mesh1"])
+    flat["plain_bf16_recall@10"] = bf16_recall
+    if (flat["mesh4"]["recall@10"] < bf16_recall - 0.01
+            or flat["mesh4_vs_mesh1_overlap"] < 0.99):
+        raise AssertionError(f"sharded flat: {flat}")
+    x1 = x[:MESH_IVF_ROWS]
+    t0 = time.perf_counter()
+    cents = distributed_kmeans(mesh4, x1, MESH_IVF_PARTITIONS, iters=25, seed=0)
+    kmeans_s = time.perf_counter() - t0
+    cd = torch.from_numpy(cents).to(MESH_DEVICE)
+    xd = torch.from_numpy(x1).to(MESH_DEVICE)
+    assign = torch.cat([torch.argmin(torch.sum(cd * cd, 1)[None] - 2.0 * (xc @ cd.T), 1)
+                        for xc in torch.split(xd, 1 << 17)]).cpu().numpy()
+    del cd, xd
+    order = np.argsort(assign, kind="stable")
+    counts = np.bincount(assign, minlength=MESH_IVF_PARTITIONS)
+    pmax = round_up(int(counts.max()), 8)
+    parts = np.zeros((MESH_IVF_PARTITIONS, pmax, dim), np.float32)
+    rowids = np.full((MESH_IVF_PARTITIONS, pmax), -1, np.int32)
+    slot = np.arange(MESH_IVF_ROWS) - np.repeat(np.cumsum(counts) - counts, counts)
+    parts[assign[order], slot] = x1[order]
+    rowids[assign[order], slot] = order
+    norms2 = np.sum(parts.astype(np.float64) ** 2, 2).astype(np.float32)
+    norms2[rowids < 0] = np.float32(3.0e38)
+    step = make_sharded_ivf_search(mesh4, k=k, nprobes=20)
+    placed = (shard_rows(mesh4, queries, over="query"), replicate(mesh4, cents),
+              shard_rows(mesh4, parts), shard_rows(mesh4, norms2), shard_rows(mesh4, rowids))
+    (_, ivf_ids), ms = timed(lambda: step(*placed), 3)
+    ivf = {"recall@10": recall(ivf_ids.cpu().numpy().astype(np.int64), gt_ivf), "ms": ms * 1e3,
+           "pmax": pmax, "kmeans_s": kmeans_s}
+    del placed, parts
+    torch.cuda.empty_cache()
+    if ivf["recall@10"] < 0.95:
+        raise AssertionError(f"sharded IVF_FLAT: {ivf}")
+    rec["sharded_flat"], rec["sharded_ivf_flat"] = flat, ivf
+    print(f"[mesh] sharded flat / IVF_FLAT ({card}): "
+          f"{json.dumps({'flat': rec['sharded_flat'], 'ivf': ivf})}", flush=True)
+
+    krec["launches"] = b1_total
+    rec["b1_launches_total"] = b1_total
+    print(f"[mesh] ({card}): {json.dumps({k2: v for k2, v in rec.items() if k2 != 'searches'})}",
+          flush=True)
+    return rec, krec
+
+
+def mesh_phase(card: str) -> tuple[dict, list[dict]]:
+    """Path i alone."""
+    results, krec = mesh_path(card)
+    print(f"card: {card}", flush=True)
+    return results, [krec]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase",
                     choices=("all", "kernels", "large_d", "hnsw", "fts", "vector_family",
-                             "lifecycle"),
+                             "lifecycle", "mesh"),
                     default="all", help="kernels: the kernel checks only; large_d, hnsw, fts, "
-                    "vector_family, lifecycle: that path only")
+                    "vector_family, lifecycle, mesh: that path only")
     ap.add_argument("--out", help="also write the full summary as JSON to this file")
     a = ap.parse_args()
     if not (REPO / "lancedb_tpu_torch" / "csrc").is_dir():
@@ -2491,9 +2927,11 @@ def main() -> int:
 
     summary: dict = {}
     kernels: list[dict] = []
-    if a.phase in ("large_d", "hnsw", "fts", "vector_family", "lifecycle"):
+    if a.phase in ("large_d", "hnsw", "fts", "vector_family", "lifecycle", "mesh"):
         if a.phase == "large_d":
             summary["large_d"], kernels = large_d_path(card)
+        elif a.phase == "mesh":
+            summary["mesh"], kernels = mesh_phase(card)
         elif a.phase == "lifecycle":
             summary["lifecycle"], kernels = lifecycle_phase(card)
         elif a.phase == "fts":

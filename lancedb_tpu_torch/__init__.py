@@ -24,6 +24,8 @@ Same surface and on-disk format as ``lancedb_tpu``:
     tbl.query().where("category = 42").order_by("id").limit(5).to_arrow()
     tbl.search(q).analyze_plan()
     db = await lancedb_tpu_torch.connect_async("/path/to/db")
+    tbl.enable_sharded_serving()  # IVF_PQ over every card (lancedb_tpu_torch.parallel)
+    TorchBatchFeeder(StreamingDataset(tbl), 4096)  # rows onto the cards (lancedb_tpu_torch.data)
 
 The package imports neither JAX nor ``lancedb_tpu``; CUDA kernels build
 from ``csrc/`` with nvcc on first use, and the host library of the

@@ -261,10 +261,13 @@ def compute_allowed_rowids(table, predicate: str) -> np.ndarray:
 
 def _indexed_fragments(searcher) -> set[int]:
     """The fragments whose rows a searcher holds (computed once per
-    searcher, which never changes)."""
+    searcher, which never changes). Padding slots hold the invalid row id,
+    which names no fragment: counted as one, it would be "vanished" and
+    cost every search a full slot penalty."""
     frags = getattr(searcher, "_indexed_fragments", None)
     if frags is None:
-        frags = set(np.unique(searcher.row_ids_flat >> np.uint64(32)).tolist())
+        rids = searcher.row_ids_flat
+        frags = set(np.unique(rids[rids != _INVALID_ROWID] >> np.uint64(32)).tolist())
         searcher._indexed_fragments = frags
     return frags
 

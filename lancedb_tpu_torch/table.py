@@ -7,8 +7,9 @@ travel with tags and branches, and optimize. The device chosen at
 ``connect()`` travels from the connection to every index build and
 searcher of the table, ``optimize()``'s rebuilds included; scalar and
 full-text indexes live on the host. Blobs, the LSM write path and
-embedding functions raise NotImplementedError naming ROADMAP A12, sharded
-serving A10. The async facade is ``aio.AsyncTable``.
+embedding functions raise NotImplementedError naming ROADMAP A12.
+``enable_sharded_serving(mesh)`` serves the IVF_PQ index over a device
+mesh (parallel/). The async facade is ``aio.AsyncTable``.
 """
 
 from __future__ import annotations
@@ -227,7 +228,6 @@ class Table(NotPortedSurface):
              "embedding_functions"),
             "A12",
         ),
-        **dict.fromkeys(("enable_sharded_serving", "disable_sharded_serving"), "A10"),
     }
 
     def __init__(self, connection, name: str, dataset: Dataset):
@@ -498,18 +498,66 @@ class Table(NotPortedSurface):
             "lancedb_tpu_torch yet (ROADMAP A12, embeddings); pass a vector"
         )
 
+    _serving_mesh = None
+
+    def enable_sharded_serving(self, mesh=None) -> None:
+        """Serve this table's IVF_PQ index across a device mesh
+        (parallel/serving.py): each shard scans its own blocks and the
+        shards' top-k merge; prefiltered and deletion-masked queries fan
+        out too. ``mesh=None`` is a one-row mesh over every device of the
+        table's device type: every card for a CUDA table, one ``cpu`` for
+        a table on the CPU. Writes drop the sharded searchers with the
+        others, so a rebuilt index is dealt anew."""
+        from .parallel.mesh import make_mesh
+
+        dev = self._device
+        if mesh is None:
+            mesh = make_mesh(devices=None if dev.type == "cuda" else [dev])
+        kinds = {d.type for d in mesh.devices.flat}
+        if kinds != {dev.type}:
+            raise InvalidInputError(
+                f"the mesh's devices ({', '.join(sorted(kinds))}) are not of the "
+                f"table's device type ({dev.type})"
+            )
+        self._serving_mesh = mesh
+        self._searchers.clear()
+
+    def disable_sharded_serving(self) -> None:
+        self._serving_mesh = None
+        self._searchers.clear()
+
     def _get_searcher(self, index_meta):
         from .index.vector import load_searcher
 
         key = index_meta.uuid
         ds = self._dataset
-        # read, then assign: a concurrent invalidation between the two must
-        # not raise a KeyError
-        s = self._searchers.get(key)
-        if s is None:
-            s = self._conn.session.get_or_load(
+
+        def load_single():
+            return self._conn.session.get_or_load(
                 f"{ds.root}/{key}", lambda: load_searcher(ds, index_meta, self._device)
             )
+
+        # read, then assign: a concurrent invalidation between the two must
+        # not raise a KeyError
+        mesh = self._serving_mesh
+        if mesh is not None and index_meta.index_type == "IVF_PQ":
+            skey = f"sharded:{key}"
+            s = self._searchers.get(skey)
+            if s is None:
+                from .parallel.serving import make_sharded_searcher
+
+                try:
+                    s = make_sharded_searcher(mesh, ds, index_meta)
+                except InvalidInputError:
+                    # a metric the sharded scan does not serve: the
+                    # single-device searcher's results (the reference's
+                    # routing)
+                    s = load_single()
+                self._searchers[skey] = s
+            return s
+        s = self._searchers.get(key)
+        if s is None:
+            s = load_single()
             self._searchers[key] = s
         return s
 

@@ -98,6 +98,17 @@ async def _count():
     t = await (await lancedb_tpu_torch.connect_async(sys.argv[1], device="cpu")).open_table("t")
     return await t.count_rows()
 assert asyncio.run(asyncio.wait_for(_count(), 60)) == 601
+# the mesh (sharded serving on two CPU shards) and the training feed
+from lancedb_tpu_torch.data import StreamingDataset, TorchBatchFeeder, permutation_builder
+from lancedb_tpu_torch.parallel import make_mesh
+tbl.enable_sharded_serving(make_mesh(devices=["cpu", "cpu"]))
+tbl.create_index(config=IvfPq(num_partitions=4, num_sub_vectors=4, max_iterations=5))
+x11 = np.random.default_rng(0).standard_normal((600, 16)).astype(np.float32)[11]  # the table's row
+assert tbl.search(x11 + 0.01).nprobes(4).refine_factor(10).limit(1).to_arrow()["id"][0].as_py() == 11
+tbl.disable_sharded_serving()
+sds = StreamingDataset(permutation_builder(tbl).shuffle(seed=1).execute(), num_splits=2)
+batch = next(iter(TorchBatchFeeder(sds, 8, columns=["vector"], mesh=make_mesh(devices=["cpu"] * 2))))
+assert [tuple(b.shape) for b in batch["vector"]] == [(4, 16), (4, 16)]
 assert not any(m == "jax" or m.startswith(("jax.", "lancedb_tpu."))
                for m, mod in sys.modules.items() if mod is not None)
 print("ok")
@@ -156,7 +167,6 @@ def test_unported_surface_names_its_roadmap_item(tmp_path):
         (lambda: tbl.set_lsm_write_spec(), "A12"),
         (lambda: tbl.embedding_functions, "A12"),
         (lambda: db.sql("SELECT 1"), "A12"),
-        (lambda: tbl.enable_sharded_serving(), "A10"),
     ):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             call()
