@@ -7,7 +7,8 @@
                                           # --phase fts: path f; --phase
                                           # vector_family: path g; --phase
                                           # lifecycle: path h; --phase mesh:
-                                          # path i)
+                                          # path i; --phase table_surface:
+                                          # path j)
     python3 chip_smoke.py --out smoke.json # also write the full summary as JSON
 
 Phases:
@@ -164,6 +165,25 @@ Phases:
      make_sharded_ivf_search over the first 1,000,000
      rows with 1024 distributed_kmeans partitions at nprobes 20 (recall >=
      0.95). B1's launches are counted from 0 for each search.
+  9. path j, the rest of the Table's surface (--phase table_surface): a
+     LanceModel (id, text embedded by the "hash" function into a 256-d
+     vector, category = id % 10) over 1,000,000 make_corpus docs (seed 0),
+     added in 100,000-row batches (the host embedding timed apart from the
+     write); IVF_PQ 1024 partitions x 32 8-bit sub-vectors, built in f32
+     as the reference's CPU build behind the bars is, and an FTS index; 256 make_corpus strings (seed 1) through search(s,
+     query_type="vector") at nprobes 20 raw, refine_factor(10) and
+     where("category = 3"), one call a string, each equal to search(v) of
+     the function's vector exactly, B1 once a call; recall@10 counting
+     ties against exact f32 truth on the card, bars from
+     tests/embed_reference_bars.py; 64 one-string hybrids single and in
+     one add_query call, each fused top-10 a numpy RRF of its legs;
+     to_pydantic; the LSM write path (a bucketed spec on id, one use_lsm
+     upsert of 5,000 new and 5,000 rewritten texts with their vectors, a
+     use_lsm scan with no superseded text, flush_lsm, 256 of the texts
+     found at distance 0 through the delta merge and after optimize()); a
+     second table of 10,000 captions with 1-128 KiB blob payloads: a flat
+     text search of 32 captions, then fetch_blobs, fetch_blob_files (read
+     and seek) and fetch_blob_ranges of the hits equal to the payloads.
 
 Prints, on lines before the last, the card's name and power limit, a
 ``kernels:`` line and one JSON object ``{"kernels": [...]}``; the last
@@ -1414,10 +1434,24 @@ HYBRID_ROWS = 1_000_000  # the bench's 100,000 raised to path a's table
 RRF_K = 60
 
 
+ZIPF_A, VOCAB = 1.3, 30_000
+
+
 def make_corpus(rng, n):
-    """Zipf-ish synthetic text: 30k-word vocabulary, 8-word docs (a copy of
-    bench.py:426 make_corpus, which cannot be imported without JAX)."""
-    ranks = np.clip(rng.zipf(1.3, size=n * 8), 1, 30_000) - 1
+    """Zipf-ish synthetic text: 30k-word vocabulary, 8-word docs: the law of
+    bench.py:426 make_corpus, ``clip(rng.zipf(1.3), 1, 30000) - 1`` as each
+    word's rank. ``Generator.zipf``'s stream differs between numpy versions
+    (2.0.2 and 2.3.5 draw different ranks from one seed), so the ranks come
+    from ``rng.random`` through the law's inverse CDF instead: the same
+    corpus on every machine, so the reference's recall on one machine is
+    the bar on another."""
+    k = np.arange(1, VOCAB, dtype=np.float64)
+    head = k ** -ZIPF_A
+    # sum over k >= VOCAB of k^-a (Euler-Maclaurin; exact to f64 rounding here)
+    tail = (VOCAB ** (1 - ZIPF_A) / (ZIPF_A - 1) + VOCAB ** -ZIPF_A / 2
+            + ZIPF_A * VOCAB ** (-ZIPF_A - 1) / 12)
+    cdf = np.cumsum(head) / (head.sum() + tail)
+    ranks = np.searchsorted(cdf, rng.random(n * 8), side="right")
     docs = np.char.add("w", ranks.astype("U6")).reshape(n, 8)
     return [" ".join(row) for row in docs]
 
@@ -2890,13 +2924,450 @@ def mesh_phase(card: str) -> tuple[dict, list[dict]]:
     return results, [krec]
 
 
+# ---------------------------------------------------------------- path j
+# the bench's FTS corpus (bench.py:426 make_corpus, 1,000,000 docs as in its
+# FTS config, bench.py:1296-1425) as a LanceModel table embedded by "hash"
+TS_DOCS, TS_BATCH, TS_QUERIES, TS_HYBRID = 1_000_000, 100_000, 256, 64
+TS_PARTITIONS, TS_SUBVECTORS, TS_NPROBES = 1024, 32, 20  # 8 dims a sub-vector
+TS_LSM_ROWS, TS_LSM_SHARDS, TS_LSM_CHECKED = 10_000, 4, 256
+TS_BLOB_ROWS, TS_BLOB_QUERIES = 10_000, 32
+TS_BLOB_SIZES = (1 << 10, 128 << 10)  # thumbnails of 1-128 KiB
+TS_ZERO = 1e-5  # |distance| of a row found by its own text (f32 rounding)
+# Bags of Zipf words embed to many equal distances: a hit counts as right
+# when its exact distance is within TS_TIE of the 10th exact distance
+TS_TIE = 1e-4
+# tests/embed_reference_bars.py: the reference's recall@10 (ties counted) on
+# the CPU at path j's settings (1M docs, nprobes 20), less 0.03; refined at
+# least 0.95 too
+TS_BARS = {"raw": 0.904296875 - 0.03, "refined": max(0.963671875 - 0.03, 0.95),
+           "filtered": 0.876171875 - 0.03}
+
+
+def exact_topk_kth(x_d, xn2_d, q: np.ndarray, k: int, mask_d=None):
+    """Exact f32 top-k l2 on the card (TF32 off), optionally over a row
+    mask: (ids (Q, k), the k-th smallest distance less |q|² per query)."""
+    import torch
+
+    d = xn2_d[None, :] - 2.0 * (torch.from_numpy(q).cuda() @ x_d.T)
+    if mask_d is not None:
+        d = torch.where(mask_d[None, :], d, torch.full_like(d, float("inf")))
+    top = torch.topk(d, k, dim=1, largest=False)
+    return top.indices.cpu().numpy(), top.values[:, -1].cpu().numpy()
+
+
+def tie_recall(hits: np.ndarray, q: np.ndarray, x: np.ndarray, kth: np.ndarray) -> float:
+    """recall@k counting ties: a hit (an id, -1 for none) is right when its
+    exact distance (the same f32 form as exact_topk_kth, on the host) is
+    within TS_TIE of the query's k-th exact distance."""
+    right = 0
+    for i, ids in enumerate(hits):
+        xi = x[ids[ids >= 0]]
+        d = (xi * xi).sum(1) - 2.0 * (xi @ q[i])
+        right += int(np.sum(d <= kth[i] + TS_TIE))
+    return right / hits.size
+
+
+def ts_rows(ids: np.ndarray, texts: list[str], vecs=None):
+    """Rows of path j's table (category = id % 10), with vectors when given."""
+    import pyarrow as pa
+
+    cols = {"id": ids.astype(np.int64), "text": texts}
+    if vecs is not None:
+        cols["vector"] = pa.FixedSizeListArray.from_arrays(pa.array(vecs.ravel()), vecs.shape[1])
+    cols["category"] = (ids % 10).astype(np.int64)
+    return pa.table(cols)
+
+
+def ts_text_searches(tbl, fn, texts: list[str], k: int, card: str) -> tuple[dict, dict]:
+    """Each string through search(s, query_type="vector") at nprobes 20,
+    raw, refine_factor(10) and where("category = 3"), one call a string,
+    then search(v) with v = fn.compute_query_embeddings(s): the same ids
+    and distances, exactly. B1 is counted over the text searches and must
+    launch once a call (one 128-query chunk). Returns (summary, the hit
+    ids (nq, k) per mode)."""
+    import torch
+
+    from lancedb_tpu_torch.ops import adc
+
+    modes = {"raw": {}, "refined": {"refine_factor": 10}, "filtered": {"where": "category = 3"}}
+
+    def one(q, opts):
+        b = tbl.search(q, query_type="vector").nprobes(TS_NPROBES).limit(k).select(["id"])
+        for method, arg in opts.items():
+            b = getattr(b, method)(arg)
+        return b.to_arrow()
+
+    t0 = time.perf_counter()
+    vecs = [fn.compute_query_embeddings(s)[0] for s in texts]
+    rec: dict = {"embed_256_queries_s": time.perf_counter() - t0}
+    for opts in modes.values():  # warm: the searcher, the refine table
+        one(texts[0], opts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ids = {}
+    for mode, opts in modes.items():
+        adc.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = [one(s, opts) for s in texts]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = adc.launch_counts["ivf_pq_adc_scan"]
+        want = [one(v, opts) for v in vecs]
+        for i, (a, b) in enumerate(zip(outs, want)):
+            if not (np.array_equal(np.asarray(a["id"]), np.asarray(b["id"]))
+                    and np.array_equal(np.asarray(a["_distance"]), np.asarray(b["_distance"]))):
+                raise AssertionError(f"path j {mode} {i}: the text search is not search(v)")
+        hits = np.full((len(texts), k), -1, np.int64)
+        for i, out in enumerate(outs):
+            hits[i, : out.num_rows] = np.asarray(out["id"])
+        ids[mode] = hits
+        rec[mode] = {"ms_per_query": dt / len(texts) * 1e3, "qps": len(texts) / dt,
+                     "b1_launches": launches, "b1_expected": len(texts)}
+        if launches != len(texts):
+            raise AssertionError(f"path j {mode}: B1 launched {launches} times over "
+                                 f"{len(texts)} one-query searches")
+    rec["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated())
+    print(f"[table_surface] text searches ({card}): {json.dumps(rec)}", flush=True)
+    return rec, ids
+
+
+def ts_hybrid(tbl, fn, texts: list[str], k: int, card: str) -> dict:
+    """One-string hybrid: each string one call, then all of them in one
+    add_query call; every fused top-10 equals numpy_rrf of its two legs
+    (the vector leg of the embedded string, the FTS leg of the string)."""
+    import pyarrow as pa
+
+    from lancedb_tpu_torch.ops import adc
+
+    def single(s):
+        return tbl.search(s, query_type="hybrid").limit(k).with_row_id().to_arrow()
+
+    def batched():
+        b = tbl.search(texts[0], query_type="hybrid").limit(k).with_row_id()
+        for s in texts[1:]:
+            b.add_query(text=s)
+        return b.to_arrow()
+
+    single(texts[0])  # warm: the FTS index loads
+    adc.reset_launch_counts()
+    singles, single_s = timed(lambda: [single(s) for s in texts])
+    single_launches = adc.launch_counts["ivf_pq_adc_scan"]
+    adc.reset_launch_counts()
+    fused_all, batch_s = timed(batched, reps=3)
+    batched_launches = adc.launch_counts["ivf_pq_adc_scan"] // 3
+    vecs = np.stack([fn.compute_query_embeddings(s)[0] for s in texts])
+    v_all = tbl.search(vecs).limit(k).with_row_id().to_arrow()
+    f_legs = [tbl.search(s, query_type="fts").limit(k).with_row_id().to_arrow() for s in texts]
+    vq_idx, f_idx = np.asarray(v_all.column("query_index")), np.asarray(
+        fused_all.column("query_index"))
+    for i, s in enumerate(texts):
+        check_rrf(fused_all.filter(pa.array(f_idx == i)), v_all.filter(pa.array(vq_idx == i)),
+                  f_legs[i], f"path j batched hybrid {i}")
+        v1 = tbl.search(vecs[i]).limit(k).with_row_id().to_arrow()
+        check_rrf(singles[i], v1, f_legs[i], f"path j hybrid {i}")
+    rec = {"queries": len(texts), "per_query_qps": len(texts) / single_s,
+           "batched_ms": batch_s * 1e3, "batched_qps": len(texts) / batch_s,
+           "single_launches_b1": single_launches, "batched_launches_b1": batched_launches}
+    print(f"[table_surface] hybrid ({card}): {json.dumps(rec)}", flush=True)
+    if single_launches != len(texts) or batched_launches != 1:
+        raise AssertionError(f"path j hybrid: B1 launched {single_launches} times over "
+                             f"{len(texts)} calls and {batched_launches} per batched call")
+    return rec
+
+
+def ts_find_own_rows(tbl, fn, texts: list[str], ids: np.ndarray, label: str, rf=None) -> dict:
+    """Each text's vector search finds its row at distance 0: the top hit's
+    exact distance to the text's vector is 0 (within TS_ZERO, f32 rounding),
+    and its own id is among the top 10 unless ten rows with the same
+    vector (the same bag of words) fill them. Returns the seconds, the
+    largest top-hit distance and how many texts had ten such duplicates."""
+    worst, crowded = 0.0, 0
+    t0 = time.perf_counter()
+    for s, want in zip(texts, ids):
+        b = tbl.search(s, query_type="vector").nprobes(TS_NPROBES).limit(10).select(["id",
+                                                                                     "vector"])
+        out = (b.refine_factor(rf) if rf else b).to_arrow()
+        q = fn.compute_query_embeddings(s)[0]
+        v = out["vector"].combine_chunks().values.to_numpy().reshape(out.num_rows, -1)
+        exact = np.sum((v - q) ** 2, axis=1)
+        got = np.asarray(out["id"])
+        duplicates = int(np.sum(exact <= TS_ZERO))
+        if not out.num_rows or exact[0] > TS_ZERO or (want not in got and duplicates < 10):
+            raise AssertionError(f"{label}: id {want} not found at distance 0: {got} {exact}")
+        crowded += int(want not in got)
+        worst = max(worst, float(exact[0]))
+    return {"ms_per_query": (time.perf_counter() - t0) / len(texts) * 1e3,
+            "max_top_hit_distance": worst, "crowded_out_by_duplicates": crowded}
+
+
+def ts_lsm(tbl, fn, k: int, card: str) -> dict:
+    """The LSM write path on path j's table: a bucketed spec on id (no
+    maintained index, so the flush leaves the indexes to the delta merge),
+    one use_lsm upsert of 5,000 new ids and 5,000 rewritten texts carrying
+    the function's vectors, a use_lsm scan (the new texts, no superseded
+    one), flush_lsm, then the 256 checked texts found at distance 0 through
+    the delta merge and again after optimize()."""
+    import pyarrow.compute as pc
+    import torch
+
+    from lancedb_tpu_torch.ops import adc
+
+    half = TS_LSM_ROWS // 2
+    old_ids = np.sort(np.random.default_rng(5).choice(TS_DOCS, half, replace=False))
+    ids = np.concatenate([old_ids, TS_DOCS + np.arange(half)])
+    texts = make_corpus(np.random.default_rng(2), TS_LSM_ROWS)
+    rows = ts_rows(ids, texts, fn.compute_source_embeddings(texts))
+    rec: dict = {"rows": TS_LSM_ROWS, "rewritten": half, "new": half}
+    tbl.set_lsm_write_spec("bucket", key_columns=["id"], num_shards=TS_LSM_SHARDS,
+                           maintained_indexes=[])
+    t0 = time.perf_counter()
+    put = (tbl.merge_insert("id").when_matched_update_all().when_not_matched_insert_all()
+           .use_lsm().execute(rows))
+    rec["put_s"] = time.perf_counter() - t0
+    if put["num_rows"] != TS_LSM_ROWS or tbl.count_rows() != TS_DOCS:
+        raise AssertionError(f"path j LSM put: {put}, {tbl.count_rows()} rows in the table")
+    t0 = time.perf_counter()
+    scan = tbl.query().use_lsm().select(["id", "text"]).to_arrow()
+    rec["scan_s"] = time.perf_counter() - t0
+    sid = np.asarray(scan["id"])
+    order = np.argsort(sid, kind="stable")
+    if len(sid) != TS_DOCS + half or len(np.unique(sid)) != len(sid):
+        raise AssertionError(f"path j LSM scan: {len(sid)} rows, {len(np.unique(sid))} ids")
+    pos = order[np.searchsorted(sid[order], ids)]
+    if not pc.all(pc.equal(scan["text"].take(pos), rows["text"])).as_py():
+        raise AssertionError("path j LSM scan: a row does not carry its newest text")
+    t0 = time.perf_counter()
+    flushed = tbl.flush_lsm()
+    rec["flush_s"] = time.perf_counter() - t0
+    merge = flushed["merge"]
+    rec["flush"] = {"rows_flushed": flushed["rows_flushed"],
+                    "updated": merge["num_updated_rows"], "inserted": merge["num_inserted_rows"]}
+    if (flushed["rows_flushed"], merge["num_updated_rows"], merge["num_inserted_rows"]) != (
+            TS_LSM_ROWS, half, half) or tbl.count_rows() != TS_DOCS + half:
+        raise AssertionError(f"path j LSM flush: {rec['flush']}, {tbl.count_rows()} rows")
+    m = TS_LSM_CHECKED // 2  # rewritten and new rows alike
+    pick = np.concatenate([np.arange(m), half + np.arange(m)])
+    check_texts, check_ids = [texts[i] for i in pick], ids[pick]
+    adc.reset_launch_counts()
+    rec["delta_merge"] = ts_find_own_rows(tbl, fn, check_texts, check_ids,
+                                          "path j after flush_lsm")
+    rec["delta_merge"]["b1_launches"] = adc.launch_counts["ivf_pq_adc_scan"]
+    # one search through the delta merge, each operator timed
+    plan = tbl.search(check_texts[0], query_type="vector").nprobes(TS_NPROBES).limit(10) \
+        .analyze_plan()
+    print(f"[table_surface] analyze_plan through the delta merge ({card}):\n{plan}", flush=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt = tbl.optimize()
+    torch.cuda.synchronize()
+    rec["optimize_s"] = time.perf_counter() - t0
+    rec["indices_rebuilt"] = opt["indices_rebuilt"]
+    adc.reset_launch_counts()
+    rec["after_optimize"] = ts_find_own_rows(tbl, fn, check_texts, check_ids,
+                                             "path j after optimize", rf=10)
+    rec["after_optimize"]["b1_launches"] = adc.launch_counts["ivf_pq_adc_scan"]
+    print(f"[table_surface] LSM ({card}): {json.dumps(rec)}", flush=True)
+    for stage in ("delta_merge", "after_optimize"):
+        if rec[stage]["b1_launches"] != TS_LSM_CHECKED:
+            raise AssertionError(f"path j {stage}: B1 launched {rec[stage]['b1_launches']} "
+                                 f"times over {TS_LSM_CHECKED} searches")
+    if tbl.lsm_stats()["total_wal_rows"] or opt["indices_rebuilt"] < 2:
+        raise AssertionError(f"path j: WAL not empty or indexes not rebuilt: {opt}")
+    return rec
+
+
+def ts_blobs(db, card: str) -> dict:
+    """Blobs on a second table: 10,000 seeded captions, their hash vectors
+    (an embedding definition on the caption) and one blob column of
+    seeded 1-128 KiB payloads. A flat search of 32 captions at k 10, then
+    fetch_blobs, fetch_blob_files (whole reads and a seek) and
+    fetch_blob_ranges of the hits, each equal to the script's payloads."""
+    import pyarrow as pa
+    import torch
+
+    from lancedb_tpu_torch.blob import blob_field
+    from lancedb_tpu_torch.embeddings import EmbeddingDefinition
+
+    rng = np.random.default_rng(4)
+    sizes = rng.integers(TS_BLOB_SIZES[0], TS_BLOB_SIZES[1] + 1, TS_BLOB_ROWS)
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    buf = rng.bytes(int(offs[-1]))
+    payloads = [buf[offs[i]:offs[i + 1]] for i in range(TS_BLOB_ROWS)]
+    captions = make_corpus(np.random.default_rng(6), TS_BLOB_ROWS)
+    schema = pa.schema([pa.field("id", pa.int64()), pa.field("caption", pa.string()),
+                        blob_field("thumb")])
+    data = pa.table({"id": np.arange(TS_BLOB_ROWS), "caption": captions,
+                     "thumb": pa.array(payloads, pa.large_binary())}, schema=schema)
+    rec: dict = {"rows": TS_BLOB_ROWS, "payload_bytes": int(offs[-1])}
+    t0 = time.perf_counter()
+    tbl = db.create_table("thumbs", data, embedding_functions=[EmbeddingDefinition(
+        source_column="caption", vector_column="vector", function_name="hash")])
+    rec["create_s"] = time.perf_counter() - t0
+    del data, buf
+    t0 = time.perf_counter()
+    hits = [tbl.search(captions[i], query_type="vector").limit(10).select(["id"])
+            .with_row_id(True).to_arrow() for i in range(TS_BLOB_QUERIES)]
+    torch.cuda.synchronize()
+    rec["search_ms_per_query"] = (time.perf_counter() - t0) / TS_BLOB_QUERIES * 1e3
+    hit_ids = np.concatenate([np.asarray(h["id"]) for h in hits])
+    rowids = np.concatenate([np.asarray(h["_rowid"]) for h in hits]).tolist()
+    for i, h in enumerate(hits):
+        if abs(float(h["_distance"][0].as_py())) > TS_ZERO:
+            raise AssertionError(f"path j blobs: caption {i}'s top hit is not at distance 0")
+    want = [payloads[i] for i in hit_ids]
+    t0 = time.perf_counter()
+    got = tbl.fetch_blobs("thumb", rowids)
+    rec["fetch_blobs_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    files = tbl.fetch_blob_files("thumb", rowids)
+    whole = [f.read() for f in files]
+    seeked = []
+    for f in files:
+        f.seek(len(f) // 2)
+        seeked.append(f.read(100))
+    rec["fetch_blob_files_s"] = time.perf_counter() - t0
+    ranges = [(len(p) // 3, len(p) // 4) for p in want]
+    t0 = time.perf_counter()
+    parts = tbl.fetch_blob_ranges("thumb", rowids, ranges)
+    rec["fetch_blob_ranges_s"] = time.perf_counter() - t0
+    rec["fetched_bytes"] = sum(len(p) for p in want)
+    if got != want or whole != want:
+        raise AssertionError("path j blobs: fetched payloads differ from the script's")
+    if seeked != [p[len(p) // 2: len(p) // 2 + 100] for p in want]:
+        raise AssertionError("path j blobs: a seek then read differs from the payload")
+    if parts != [p[a: a + n] for p, (a, n) in zip(want, ranges)]:
+        raise AssertionError("path j blobs: a range differs from the payload")
+    print(f"[table_surface] blobs ({card}): {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def table_surface_path(db, card: str) -> tuple[dict, dict]:
+    """Path j: the table's ingest surface at the bench's FTS scale. A
+    LanceModel (id, text embedded by "hash" into a 256-d vector, category
+    = id % 10) over 1,000,000 make_corpus docs added in 100,000-row batches
+    (the host embedding timed apart from the write); IVF_PQ 1024 x 32
+    8-bit sub-vectors and an FTS index on text; 256 text searches raw,
+    refined and filtered (each equal to search(v), recall against exact f32
+    truth on the card), the one-string hybrid, to_pydantic, the LSM write
+    path and blobs. Returns (summary, B1's record at the text searches'
+    shapes)."""
+    import torch
+
+    from lancedb_tpu_torch.embeddings import get_registry
+    from lancedb_tpu_torch.index import IvfPq
+    from lancedb_tpu_torch.pydantic import LanceModel, Vector
+
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must stay off for exact f32"
+    k = 10
+    fn = get_registry().get("hash").create()
+
+    class Doc(LanceModel):
+        id: int
+        text: str = fn.SourceField()
+        vector: Vector(fn.ndims()) = fn.VectorField()
+        category: int
+
+    rec: dict = {"card": card, "docs": TS_DOCS, "dim": fn.ndims()}
+    t0 = time.perf_counter()
+    docs = make_corpus(np.random.default_rng(0), TS_DOCS)
+    rec["corpus_s"] = time.perf_counter() - t0
+    tbl = db.create_table("docs", schema=Doc)
+    embedder = tbl.embedding_functions["vector"]
+    embed_s = [0.0]
+    compute = embedder.compute_source_embeddings
+
+    def timed_compute(texts):  # the host embedding, timed apart from the write
+        t = time.perf_counter()
+        out = compute(texts)
+        embed_s[0] += time.perf_counter() - t
+        return out
+
+    embedder.compute_source_embeddings = timed_compute
+    t0 = time.perf_counter()
+    for s in range(0, TS_DOCS, TS_BATCH):
+        ids = np.arange(s, min(s + TS_BATCH, TS_DOCS))
+        tbl.add(ts_rows(ids, docs[s: s + TS_BATCH]))
+    rec["add_s"] = time.perf_counter() - t0
+    rec["embed_s"] = embed_s[0]
+    rec["write_s"] = rec["add_s"] - embed_s[0]
+    embedder.compute_source_embeddings = compute
+    print(f"[table_surface] corpus {rec['corpus_s']:.3f} s, add {rec['add_s']:.3f} s "
+          f"(embedding {rec['embed_s']:.3f} s on the host) ({card})", flush=True)
+
+    x = tbl.to_arrow().column("vector").combine_chunks().values.to_numpy().reshape(TS_DOCS, -1)
+    x_d = torch.from_numpy(x.copy()).cuda()
+    queries = make_corpus(np.random.default_rng(1), TS_QUERIES)
+    qv = np.stack([fn.compute_query_embeddings(s)[0] for s in queries])
+    xn2_d = torch.sum(x_d * x_d, dim=1)
+    mask_d = torch.from_numpy(np.arange(TS_DOCS) % 10 == 3).cuda()
+    gt, kth = exact_topk_kth(x_d, xn2_d, qv, k)
+    gt_f, kth_f = exact_topk_kth(x_d, xn2_d, qv, k, mask_d)
+    del x_d, xn2_d, mask_d
+    torch.cuda.empty_cache()
+
+    # the bars come from the reference's CPU build, which multiplies in f32
+    # (the card's default is the bf16 of the reference's TPU build)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tbl.create_index(config=IvfPq(num_partitions=TS_PARTITIONS, num_sub_vectors=TS_SUBVECTORS,
+                                  num_bits=8, build_precision="float32"))
+    torch.cuda.synchronize()
+    rec["ivf_pq_build_s"] = time.perf_counter() - t0
+    rec["build_peak_mem_bytes"] = int(torch.cuda.max_memory_allocated())
+    t0 = time.perf_counter()
+    tbl.create_fts_index("text", with_position=False)
+    rec["fts_build_s"] = time.perf_counter() - t0
+    print(f"[table_surface] IVF_PQ build {rec['ivf_pq_build_s']:.3f} s (peak "
+          f"{rec['build_peak_mem_bytes']} bytes), FTS build {rec['fts_build_s']:.3f} s "
+          f"({card})", flush=True)
+
+    rec["text_search"], hits = ts_text_searches(tbl, fn, queries, k, card)
+    for mode, truth, kk in (("raw", gt, kth), ("refined", gt, kth), ("filtered", gt_f, kth_f)):
+        rec["text_search"][mode]["recall@10_ids"] = recall(hits[mode], truth)
+        rec["text_search"][mode]["recall@10"] = tie_recall(hits[mode], qv, x, kk)
+    del x
+    print(f"[table_surface] recall@10, ties counted (by ids) ({card}): " + json.dumps(
+        {m: (rec["text_search"][m]["recall@10"], rec["text_search"][m]["recall@10_ids"])
+         for m in hits}), flush=True)
+    for mode, bar in TS_BARS.items():
+        if rec["text_search"][mode]["recall@10"] < bar:
+            raise AssertionError(f"path j {mode} recall {rec['text_search'][mode]['recall@10']} "
+                                 f"< {bar}")
+    rec["hybrid"] = ts_hybrid(tbl, fn, queries[:TS_HYBRID], k, card)
+    got = tbl.search(queries[0], query_type="vector").nprobes(TS_NPROBES).limit(1).to_pydantic(Doc)
+    if not (isinstance(got[0], Doc) and got[0].id == hits["raw"][0, 0]
+            and len(got[0].vector) == fn.ndims()):
+        raise AssertionError(f"path j to_pydantic: {got}")
+    searcher = next(tbl._get_searcher(ix) for ix in tbl._dataset.manifest.indices
+                    if ix.index_type == "IVF_PQ")
+    krec = check_adc(searcher_adc_args(searcher, qv), "path j text-search shapes")
+    krec["launches"] = sum(rec["text_search"][m]["b1_launches"] for m in hits) + \
+        rec["hybrid"]["single_launches_b1"] + rec["hybrid"]["batched_launches_b1"]
+    del searcher
+    rec["lsm"] = ts_lsm(tbl, fn, k, card)
+    krec["launches"] += (rec["lsm"]["delta_merge"]["b1_launches"]
+                         + rec["lsm"]["after_optimize"]["b1_launches"])
+    rec["blobs"] = ts_blobs(db, card)
+    return rec, krec
+
+
+def table_surface_phase(card: str) -> tuple[dict, list[dict]]:
+    """Path j on a database of its own."""
+    import lancedb_tpu_torch
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ts_") as tmp:
+        results, krec = table_surface_path(lancedb_tpu_torch.connect(tmp), card)
+    print(f"card: {card}", flush=True)
+    return results, [krec]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase",
                     choices=("all", "kernels", "large_d", "hnsw", "fts", "vector_family",
-                             "lifecycle", "mesh"),
+                             "lifecycle", "mesh", "table_surface"),
                     default="all", help="kernels: the kernel checks only; large_d, hnsw, fts, "
-                    "vector_family, lifecycle, mesh: that path only")
+                    "vector_family, lifecycle, mesh, table_surface: that path only")
     ap.add_argument("--out", help="also write the full summary as JSON to this file")
     a = ap.parse_args()
     if not (REPO / "lancedb_tpu_torch" / "csrc").is_dir():
@@ -2927,13 +3398,16 @@ def main() -> int:
 
     summary: dict = {}
     kernels: list[dict] = []
-    if a.phase in ("large_d", "hnsw", "fts", "vector_family", "lifecycle", "mesh"):
+    if a.phase in ("large_d", "hnsw", "fts", "vector_family", "lifecycle", "mesh",
+                   "table_surface"):
         if a.phase == "large_d":
             summary["large_d"], kernels = large_d_path(card)
         elif a.phase == "mesh":
             summary["mesh"], kernels = mesh_phase(card)
         elif a.phase == "lifecycle":
             summary["lifecycle"], kernels = lifecycle_phase(card)
+        elif a.phase == "table_surface":
+            summary["table_surface"], kernels = table_surface_phase(card)
         elif a.phase == "fts":
             summary["fts"], kernels = fts_phase(card)
         elif a.phase == "vector_family":

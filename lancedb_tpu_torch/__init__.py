@@ -23,6 +23,14 @@ Same surface and on-disk format as ``lancedb_tpu``:
     tbl.checkout(v); tbl.checkout_latest(); tbl.tags.create("t", v); tbl.restore(v)
     tbl.query().where("category = 42").order_by("id").limit(5).to_arrow()
     tbl.search(q).analyze_plan()
+    class Doc(LanceModel):                     # embedding functions (embeddings/)
+        text: str = fn.SourceField()           # fn = get_registry().get("hash").create()
+        vector: Vector(fn.ndims()) = fn.VectorField()
+    tbl = db.create_table("docs", schema=Doc); tbl.add([{"text": "a quick fox"}])
+    tbl.search("quick fox", query_type="vector").limit(10).to_pydantic(Doc)
+    tbl.fetch_blobs("media", row_ids)  # a blob_field("media") column, stored out of line
+    tbl.merge_insert("id").when_matched_update_all().when_not_matched_insert_all().use_lsm()
+    tbl.query().use_lsm().to_arrow(); tbl.flush_lsm()  # after tbl.set_lsm_write_spec(...)
     db = await lancedb_tpu_torch.connect_async("/path/to/db")
     tbl.enable_sharded_serving()  # IVF_PQ over every card (lancedb_tpu_torch.parallel)
     TorchBatchFeeder(StreamingDataset(tbl), 4096)  # rows onto the cards (lancedb_tpu_torch.data)
@@ -33,6 +41,8 @@ full-text index from ``native/lancedb_native.cpp`` with g++.
 """
 
 from .aio import AsyncConnection, AsyncTable, connect_async
+from .blob import blob_field
+from .context import contextualize
 from .db import LanceDBConnection, connect, deserialize_conn
 from .errors import (
     IndexNotFoundError,
@@ -82,6 +92,8 @@ from .table import MergeInsertBuilder, Table
 __version__ = "0.1.0"
 
 __all__ = [
+    "blob_field",
+    "contextualize",
     "connect",
     "connect_async",
     "deserialize_conn",

@@ -27,7 +27,6 @@ from typing import Any, AsyncIterator
 
 import pyarrow as pa
 
-from ._surface import NotPortedSurface
 from .db import LanceDBConnection, connect
 from .session import Session
 from .table import Table
@@ -262,14 +261,8 @@ class _AsyncTags:
         return await _run(self._tags.update, tag, version)
 
 
-class AsyncTable(NotPortedSurface):
+class AsyncTable:
     """Async facade over a Table (reference AsyncTable, table.py:1380-1600)."""
-
-    _NOT_PORTED = dict.fromkeys(
-        ("blob_columns", "fetch_blobs", "fetch_blob_files", "fetch_blob_ranges",
-         "get_lsm_write_spec", "unset_lsm_write_spec"),
-        "A12",
-    )
 
     def __init__(self, table: Table):
         self._t = table
@@ -426,6 +419,24 @@ class AsyncTable(NotPortedSurface):
 
     async def tokenize(self, query: str, *, column=None, index_name=None):
         return await _run(lambda: self._t.tokenize(query, column=column, index_name=index_name))
+
+    async def blob_columns(self) -> list[str]:
+        return await _run(lambda: self._t.blob_columns)
+
+    async def fetch_blobs(self, column: str, row_ids) -> list:
+        return await _run(self._t.fetch_blobs, column, row_ids)
+
+    async def fetch_blob_files(self, column: str, row_ids) -> list:
+        return await _run(self._t.fetch_blob_files, column, row_ids)
+
+    async def fetch_blob_ranges(self, column: str, row_ids, ranges) -> list:
+        return await _run(self._t.fetch_blob_ranges, column, row_ids, ranges)
+
+    async def get_lsm_write_spec(self) -> dict | None:
+        return await _run(self._t.get_lsm_write_spec)
+
+    async def unset_lsm_write_spec(self, *, force: bool = False) -> None:
+        return await _run(lambda: self._t.unset_lsm_write_spec(force=force))
 
     def close(self) -> None:
         """Drop the table's cached searchers and indexes."""

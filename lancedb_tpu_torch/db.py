@@ -7,9 +7,11 @@ table, index build and searcher under it uses: ``connect(uri)`` means
 the card, and a caller that wants the CPU passes ``device="cpu"``. It
 also owns the read-consistency interval (with a background refresher
 when the interval is positive), the session's searcher cache and the
-registry of background jobs. ``connect_async`` (in ``aio.py``) wraps a
-connection. Remote and namespace connections and SQL wait for a later
-slice (ROADMAP A12).
+registry of background jobs. ``create_table`` takes a pyarrow schema or a
+pydantic ``LanceModel``, binds embedding functions into the schema's
+metadata and stores blob columns out of line. ``connect_async`` (in
+``aio.py``) wraps a connection. SQL waits for ROADMAP A12b; namespaces and
+remote connections for A12e.
 """
 
 from __future__ import annotations
@@ -34,11 +36,14 @@ TABLE_SUFFIX = ".lance"
 
 
 class LanceDBConnection(NotPortedSurface):
-    _NOT_PORTED = dict.fromkeys(
-        ("sql", "namespace_client", "create_namespace", "drop_namespace", "list_namespaces",
-         "namespace_exists", "describe_namespace"),
-        "A12",
-    )
+    _NOT_PORTED = {
+        "sql": "A12b",
+        **dict.fromkeys(
+            ("namespace_client", "create_namespace", "drop_namespace", "list_namespaces",
+             "namespace_exists", "describe_namespace"),
+            "A12e",
+        ),
+    }
 
     def __init__(self, uri: str, *, device=None, read_consistency_interval: float | None = None,
                  storage_options: dict | None = None, session: Session | None = None,
@@ -117,35 +122,73 @@ class LanceDBConnection(NotPortedSurface):
         self,
         name: str,
         data: Any = None,
-        schema: pa.Schema | None = None,
+        schema: Any = None,
         mode: str = "create",
         exist_ok: bool = False,
         on_bad_vectors: str = "error",
         fill_value: float = 0.0,
+        embedding_functions: list | None = None,
     ) -> Table:
-        """Create a table from data and/or a pyarrow schema. Embedding
-        functions, pydantic models and blob columns wait for a later
-        slice (ROADMAP A12)."""
+        """Create a table from data and/or a schema (a pyarrow schema or a
+        pydantic ``LanceModel``, whose SourceField / VectorField markers
+        become embedding definitions). With embedding functions, each
+        missing vector column is added, sized by its function, the
+        definitions go into the schema's metadata, and the data goes
+        through ``Table.add`` so that it is embedded as later appends are.
+        Blob columns become descriptor columns and their payloads go to
+        ``_blobs/`` (reference db.py:181-245)."""
+        from .blob import blob_columns, encode_blobs, physical_schema
+
         if mode not in ("create", "overwrite"):
             raise InvalidInputError(f"unknown mode {mode!r}")
         if mode == "create" and exist_ok:
             mode = "exist_ok"
         if schema is not None and not isinstance(schema, pa.Schema):
-            raise NotImplementedError(
-                "only pyarrow schemas are ported to lancedb_tpu_torch yet (ROADMAP A12)"
-            )
+            if not hasattr(schema, "to_arrow_schema"):
+                raise InvalidInputError("schema must be a pyarrow.Schema or LanceModel")
+            if not embedding_functions and hasattr(schema, "model_fields"):
+                from .pydantic import parse_embedding_functions
+
+                embedding_functions = parse_embedding_functions(schema) or None
+            schema = schema.to_arrow_schema()
         if data is None and schema is None:
             raise InvalidInputError("either data or schema is required")
+        embed_data = None
+        if embedding_functions:
+            from .embeddings.multimodal import MultiVectorEmbeddingFunction
+            from .embeddings.registry import EmbeddingFunctionRegistry
+
+            registry = EmbeddingFunctionRegistry.get_instance()
+            if schema is None:
+                schema = to_arrow_table(data).schema
+            for d in embedding_functions:
+                if d.vector_column not in schema.names:
+                    fn = registry.get(d.function_name).create(**(d.config or {}))
+                    inner = pa.list_(pa.float32(), fn.ndims())
+                    # a multivector function's column holds bags of vectors
+                    multi = isinstance(fn, MultiVectorEmbeddingFunction)
+                    schema = schema.append(pa.field(d.vector_column,
+                                                    pa.list_(inner) if multi else inner))
+            schema = registry.attach_metadata(schema, embedding_functions)
+            embed_data, data = data, None
         tbl = to_arrow_table(data, schema=schema) if data is not None else None
         if tbl is not None:
             tbl = sanitize_vectors(tbl, on_bad_vectors, fill_value)
         if schema is None:
             schema = tbl.schema
+        root = self._table_root(name)
+        if blob_columns(schema):
+            if tbl is not None:
+                tbl = encode_blobs(self._store, root, tbl, schema)
+            schema = physical_schema(schema)
         try:
-            ds = Dataset.create(self._store, self._table_root(name), schema, data=tbl, mode=mode)
+            ds = Dataset.create(self._store, root, schema, data=tbl, mode=mode)
         except TableAlreadyExistsError:
             raise TableAlreadyExistsError(name) from None
-        return Table(self, name, ds)
+        table = Table(self, name, ds)
+        if embed_data is not None:
+            table.add(embed_data, on_bad_vectors=on_bad_vectors, fill_value=fill_value)
+        return table
 
     def open_table(self, name: str, *, version: int | None = None, tag: str | None = None,
                    branch: str | None = None) -> Table:
@@ -256,7 +299,7 @@ def connect(
     background."""
     if uri.startswith("db://"):
         raise NotImplementedError(
-            "remote connections are not ported to lancedb_tpu_torch yet (ROADMAP A12)"
+            "remote connections are not ported to lancedb_tpu_torch yet (ROADMAP A12e)"
         )
     return LanceDBConnection(uri, device=device,
                              read_consistency_interval=read_consistency_interval,

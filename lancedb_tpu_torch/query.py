@@ -24,8 +24,10 @@ streams the dataset's fragments through the filter and projection.
 ``explain_plan`` prints the physical plan; ``analyze_plan`` runs the
 query and times each operator, synchronizing the table's CUDA device
 around each one so that the times cover the device's work (only during
-an analyze run). Text queries that need an embedding function, LSM reads
-and ``to_pydantic`` wait for a later slice (ROADMAP A12).
+an analyze run). A text query for the vector leg is embedded on the host
+by the table's embedding function (``Table._embed_query``), then searched as
+a vector. ``use_lsm()`` on a plain scan merges the LSM WAL's rows over the
+table, newest write winning; searches refuse it, as the reference's do.
 """
 
 from __future__ import annotations
@@ -40,7 +42,6 @@ import numpy as np
 import pyarrow as pa
 import torch
 
-from ._surface import NotPortedSurface
 from .arrow import fsl_to_numpy, is_multivector_type, vector_column_name
 from .errors import InvalidInputError
 from .filters.eval import evaluate_expression, evaluate_predicate_mask
@@ -516,12 +517,10 @@ def _coerce_query_vectors(query) -> list[np.ndarray]:
     return [np.asarray(query, dtype=np.float32)]
 
 
-class LanceQueryBuilder(NotPortedSurface):
+class LanceQueryBuilder:
     """Fluent builder base (reference query.py LanceQueryBuilder): the
     setters and outputs every query kind shares, and the dispatch on query
     type."""
-
-    _NOT_PORTED = dict.fromkeys(("use_lsm", "to_pydantic"), "A12")
 
     _limit_set = False
     _explicit_row_id = False
@@ -529,6 +528,7 @@ class LanceQueryBuilder(NotPortedSurface):
     _fragment_ids: list[int] | None = None
     _order_by: list[tuple[str, str]] | None = None
     _order_nulls: list[str | None] | None = None
+    _use_lsm = False
 
     def __init__(self, table):
         self._table = table
@@ -607,6 +607,12 @@ class LanceQueryBuilder(NotPortedSurface):
         self._fragment_ids = [int(getattr(f, "id", f)) for f in fragments]
         return self
 
+    def use_lsm(self, flag: bool = True) -> "LanceQueryBuilder":
+        """Merge the LSM WAL's rows over the table (reference query.rs:818-887
+        use_lsm). A plain scan honours it; a search refuses it when it runs."""
+        self._use_lsm = flag
+        return self
+
     def order_by(self, *columns) -> "LanceQueryBuilder":
         """Sort the output rows: each key a column name, a (name,
         'asc'|'desc') pair or a ColumnOrdering. On a search it orders the
@@ -652,6 +658,11 @@ class LanceQueryBuilder(NotPortedSurface):
 
     def _check_scan_only_flags(self) -> None:
         """A search refuses the options that only a plain scan honours."""
+        if self._use_lsm:
+            raise InvalidInputError(
+                "use_lsm applies to plain scans (table.query()); search "
+                "results are served from the committed base table"
+            )
         if self._fragment_ids is not None:
             raise InvalidInputError(
                 "fragment_ids/with_fragments apply to plain scanner-backed "
@@ -668,6 +679,8 @@ class LanceQueryBuilder(NotPortedSurface):
             "Lance", "").replace("QueryBuilder", "").lower() or "empty"
         if self._fragment_ids is not None:
             req["fragment_ids"] = self._fragment_ids
+        if self._use_lsm:
+            req["use_lsm"] = True
         return req
 
     # ------------------------------------------------------------ outputs
@@ -702,6 +715,12 @@ class LanceQueryBuilder(NotPortedSurface):
     def to_list(self) -> list[dict]:
         return self.to_arrow().to_pylist()
 
+    def to_pydantic(self, model_cls) -> list:
+        """The rows as instances of a pydantic model, from the columns it
+        declares."""
+        return [model_cls(**{k: v for k, v in row.items() if k in model_cls.model_fields})
+                for row in self.to_list()]
+
     def to_json(self) -> list[dict]:
         """Rows as JSON-safe dicts."""
         import json
@@ -735,8 +754,10 @@ class LanceQueryBuilder(NotPortedSurface):
                fts_columns: list[str] | None = None) -> "LanceQueryBuilder":
         """Dispatch on the query's type (reference query.py:782-825): None →
         a plain scan; a (vector, text) pair or query_type "hybrid" →
-        hybrid; a string or an FTS query node → full text; anything else →
-        vector."""
+        hybrid; a string → its vector from the table's embedding function
+        with query_type "vector", and with "auto" when the table has
+        embedding functions and no FTS index, else full text; an FTS query
+        node → full text; anything else → vector."""
         from .query_fts import FtsQueryNode
 
         if query is None:
@@ -747,13 +768,14 @@ class LanceQueryBuilder(NotPortedSurface):
             vec, text = query if isinstance(query, tuple) else (None, query)
             return LanceHybridQueryBuilder(table, text, vec, vector_column_name, fts_columns)
         if isinstance(query, str):
-            if query_type in ("auto", "fts"):
-                # the reference embeds a string through the table's embedding
-                # function when the table has one and no FTS index; the port
-                # has no embedding functions, so a string is full text
+            if query_type == "auto":
+                has_fts = any(ix.index_type == "FTS" for ix in table._dataset.manifest.indices)
+                query_type = "vector" if table.embedding_functions and not has_fts else "fts"
+            if query_type == "fts":
                 return LanceFtsQueryBuilder(table, query, fts_columns)
             if query_type == "vector":
-                return LanceVectorQueryBuilder(table, table._embed_query(query), vector_column_name)
+                vec = table._embed_query(query, vector_column_name)
+                return LanceVectorQueryBuilder(table, vec, vector_column_name)
             raise InvalidInputError(f"unknown query_type {query_type!r}")
         if isinstance(query, FtsQueryNode):
             return LanceFtsQueryBuilder(table, query, fts_columns)
@@ -864,6 +886,7 @@ class LanceEmptyQueryBuilder(LanceQueryBuilder):
         b._req.select = self._req.select
         # a search refuses a scan-only option instead of dropping it
         b._fragment_ids = self._fragment_ids
+        b._use_lsm = self._use_lsm
         return b
 
     def nearest_to(self, vector) -> "LanceVectorQueryBuilder":
@@ -882,6 +905,13 @@ class LanceEmptyQueryBuilder(LanceQueryBuilder):
     def to_arrow(self) -> pa.Table:
         ds = self._table._dataset
         limit = self._scan_limit()
+        if self._use_lsm:
+            if self._fragment_ids is not None:
+                raise InvalidInputError(
+                    "fragment_ids cannot combine with use_lsm: WAL rows are "
+                    "not committed to fragments yet"
+                )
+            return self._lsm_scan(limit)
         # a sort decides which rows the limit keeps: push the limit and the
         # offset down only into an unsorted scan
         out = ds.to_table(
@@ -906,12 +936,49 @@ class LanceEmptyQueryBuilder(LanceQueryBuilder):
                 out = out.drop_columns([ROW_ID_COL])
         return out
 
+    def _lsm_scan(self, limit: int | None) -> pa.Table:
+        """The table's rows whose keys the WAL does not hold, then the WAL's
+        live rows (each key's newest write), through the filter and
+        projection; WAL rows carry the invalid row id."""
+        ds = self._table._dataset
+        lsm = self._table._lsm
+        spec = lsm.get_spec()
+        wal = lsm.wal_rows() if spec is not None else None
+        keys = spec.key_columns if spec is not None else []
+        cols = _selected_columns(self._req)
+        read_cols = None if cols is None else sorted(set(cols) | set(keys))
+        base = ds.to_table(columns=read_cols, predicate=self._req.filter,
+                           with_row_id=self._req.with_row_id)
+        if wal is not None and wal.num_rows:
+            wal_keys = set(zip(*[wal.column(c).to_pylist() for c in keys]))
+            keep = np.asarray([k not in wal_keys
+                               for k in zip(*[base.column(c).to_pylist() for c in keys])],
+                              dtype=bool)
+            if not keep.all():
+                base = base.filter(pa.array(keep))
+            if self._req.filter is not None:
+                wal = wal.filter(pa.array(evaluate_predicate_mask(wal, self._req.filter)))
+            if self._req.with_row_id:
+                wal = wal.append_column(
+                    ROW_ID_COL, pa.array(np.full(wal.num_rows, _INVALID_ROWID, dtype=np.uint64)))
+            base = pa.concat_tables([base, wal.select(base.column_names)],
+                                    promote_options="default")
+        if cols is not None:
+            base = base.select(list(cols) + ([ROW_ID_COL] if self._req.with_row_id else []))
+        if isinstance(self._req.select, dict):
+            base = _project(base, self._req.select)
+        if self._req.offset:
+            base = base.slice(self._req.offset)
+        return base if limit is None else base.slice(0, limit)
+
     def to_batches(self, max_batch_length: int = 1024,
                    timeout: float | None = None) -> Iterable[pa.RecordBatch]:
         """A streaming scan: one fragment resident at a time, so a scan of
-        the whole table runs in bounded host memory. A sorted, fragment-
-        scoped or row-address scan works on the whole result instead."""
-        if self._order_by or self._fragment_ids is not None or self._with_row_address:
+        the whole table runs in bounded host memory. A sorted, LSM,
+        fragment-scoped or row-address scan works on the whole result
+        instead."""
+        if (self._order_by or self._use_lsm or self._fragment_ids is not None
+                or self._with_row_address):
             yield from super().to_batches(max_batch_length, timeout)
             return
         start = time.monotonic()
@@ -1133,7 +1200,7 @@ class LanceHybridQueryBuilder(LanceQueryBuilder):
         vectors, texts = [], []
         for vec, txt in pairs:
             if vec is None:
-                vec = self._table._embed_query(txt)
+                vec = self._table._embed_query(txt, self._vector_column)
             vectors.append(np.asarray(vec, dtype=np.float32).reshape(-1))
             texts.append(txt)
         k = self._req.k
@@ -1164,7 +1231,7 @@ class LanceHybridQueryBuilder(LanceQueryBuilder):
         if self._extra_queries:
             return self._to_arrow_batched()
         if self._vector is None:
-            self._vector = self._table._embed_query(self._text_query)
+            self._vector = self._table._embed_query(self._text_query, self._vector_column)
         vq = self._vector_leg(self._vector)
         # the FTS leg (host) overlaps the vector leg's device work
         with ThreadPoolExecutor(max_workers=1, thread_name_prefix="hybrid-fts") as ex:

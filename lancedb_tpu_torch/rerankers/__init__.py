@@ -3,7 +3,7 @@
 RRF, linear combination and MRR are ported. The rerankers that need
 model weights (cross-encoder, ColBERT, answerdotai) or a network service
 (Cohere, Jina, OpenAI, VoyageAI, watsonx) keep their names here and
-raise NotImplementedError naming their ROADMAP item (A12).
+raise NotImplementedError naming their ROADMAP item (A12f).
 """
 
 from .base import Reranker, normalize_scores
@@ -15,7 +15,7 @@ from .rrf import RRFReranker
 def _not_ported(name: str, needs: str) -> type:
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
-            f"{name} needs {needs} and is not ported to lancedb_tpu_torch yet (ROADMAP A12)"
+            f"{name} needs {needs} and is not ported to lancedb_tpu_torch yet (ROADMAP A12f)"
         )
 
     return type(name, (Reranker,), {"__init__": __init__, "__doc__": f"Not ported: needs {needs}."})

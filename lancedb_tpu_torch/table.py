@@ -6,10 +6,13 @@ every ported type, scalar and full-text indexes), schema evolution, time
 travel with tags and branches, and optimize. The device chosen at
 ``connect()`` travels from the connection to every index build and
 searcher of the table, ``optimize()``'s rebuilds included; scalar and
-full-text indexes live on the host. Blobs, the LSM write path and
-embedding functions raise NotImplementedError naming ROADMAP A12.
-``enable_sharded_serving(mesh)`` serves the IVF_PQ index over a device
-mesh (parallel/). The async facade is ``aio.AsyncTable``.
+full-text indexes live on the host. The host layers of ingest follow the
+reference: ``add`` stores blob payloads out of line (blob.py) and computes
+missing vector columns with the table's embedding functions (embeddings/),
+whose definitions live in the schema's metadata; ``merge_insert(...)
+.use_lsm()`` writes to the LSM WAL (lsm.py), which ``flush_lsm`` folds into
+the table. ``enable_sharded_serving(mesh)`` serves the IVF_PQ index over a
+device mesh (parallel/). The async facade is ``aio.AsyncTable``.
 """
 
 from __future__ import annotations
@@ -25,7 +28,6 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.dataset as pads
 
-from ._surface import NotPortedSurface
 from .arrow import is_vector_type, sanitize_vectors, to_arrow_table
 from .arrow import vector_column_name as _vector_column_name
 from .errors import IndexNotFoundError, InvalidInputError
@@ -98,10 +100,12 @@ class Tags:
         return self._table._dataset.tag_version(name)
 
 
-class MergeInsertBuilder(NotPortedSurface):
-    """Fluent upsert builder (reference MergeInsertBuilder, merge.rs:66-223)."""
+class MergeInsertBuilder:
+    """Fluent upsert builder (reference MergeInsertBuilder, merge.rs:66-223).
+    As in the reference, it does not apply the table's embedding functions:
+    the source rows carry their vectors."""
 
-    _NOT_PORTED = {"use_lsm": "A12"}
+    _use_lsm = False
 
     def __init__(self, table: "Table", on: str | list[str]):
         self._table = table
@@ -127,11 +131,34 @@ class MergeInsertBuilder(NotPortedSurface):
         self._delete_condition = condition
         return self
 
+    def use_lsm(self, flag: bool = True) -> "MergeInsertBuilder":
+        """Write this upsert to the LSM WAL instead of joining it against
+        the table (reference merge.rs use_lsm; needs set_lsm_write_spec)."""
+        self._use_lsm = flag
+        return self
+
     def execute(self, new_data: Any, timeout: float | None = None) -> dict:
         """One commit: matched rows rewritten into a new fragment (their old
-        copies deleted), unmatched source rows appended."""
+        copies deleted), unmatched source rows appended. With ``use_lsm``
+        the rows go to the WAL of their shards, which serves only the
+        upsert shape, on the spec's keys."""
+        source = to_arrow_table(new_data, schema=None)
+        if self._use_lsm:
+            if not (self._update_all and self._insert_all) or self._delete_missing:
+                raise InvalidInputError(
+                    "LSM merge_insert supports the upsert shape only "
+                    "(when_matched_update_all + when_not_matched_insert_all)"
+                )
+            spec = self._table._lsm.get_spec()
+            if spec is None:
+                raise InvalidInputError("no LSM spec; call set_lsm_write_spec first")
+            if spec.key_columns != self._on:
+                raise InvalidInputError(
+                    f"merge keys {self._on} must match the LSM spec keys {spec.key_columns}"
+                )
+            return self._table._lsm.append(source)
         stats = self._table._dataset.merge_insert(
-            to_arrow_table(new_data, schema=None),
+            source,
             on=self._on,
             when_matched_update_all=self._update_all,
             matched_condition=self._update_condition,
@@ -216,19 +243,8 @@ class _ProgressAdapter:
                 self._bar.close()
 
 
-class Table(NotPortedSurface):
+class Table:
     """A handle on one table of a database."""
-
-    _NOT_PORTED = {
-        **dict.fromkeys(
-            ("fetch_blobs", "fetch_blob_files", "fetch_blob_ranges", "blob_columns",
-             "set_lsm_write_spec", "get_lsm_write_spec", "unset_lsm_write_spec",
-             "describe_lsm_spec", "drop_lsm_spec", "close_lsm_writers", "flush_lsm",
-             "checkpoint_lsm", "compact_lsm", "lsm_stats", "get_lsm_stats",
-             "embedding_functions"),
-            "A12",
-        ),
-    }
 
     def __init__(self, connection, name: str, dataset: Dataset):
         self._conn = connection
@@ -243,6 +259,8 @@ class Table(NotPortedSurface):
         # invalidation it triggers between concurrent readers
         self._refresh_lock = threading.Lock()
         self._last_consistency_check = time.monotonic()
+        self._embedding_functions: dict[str, Any] = {}
+        self._load_embedding_config()
         if connection._refresher is not None:
             connection._refresher.register(self)
 
@@ -297,8 +315,20 @@ class Table(NotPortedSurface):
         return self._dataset.version
 
     @property
+    def embedding_functions(self) -> dict:
+        """The table's embedding functions by vector column."""
+        return self._embedding_functions
+
+    @property
+    def blob_columns(self) -> list[str]:
+        """The columns stored as out-of-line blobs."""
+        from .blob import blob_columns
+
+        return blob_columns(self.schema)
+
+    @property
     def namespace(self) -> list[str]:
-        """The namespace path: empty, namespaces wait for ROADMAP A12."""
+        """The namespace path: empty, namespaces wait for ROADMAP A12e."""
         return []
 
     @property
@@ -395,17 +425,30 @@ class Table(NotPortedSurface):
         on_progress=None,
         progress=None,
     ) -> None:
-        """Append (or overwrite with) rows. A RecordBatchReader, a
-        generator of batches, or a pyarrow dataset or scanner is appended
-        fragment by fragment in bounded memory, in one commit.
+        """Append (or overwrite with) rows. Blob payloads go out of line
+        and missing vector columns are computed by the table's embedding
+        functions. A RecordBatchReader, a generator of batches, or a
+        pyarrow dataset or scanner is appended fragment by fragment in
+        bounded memory, in one commit; into a table with embedding
+        functions or blob columns, batch by batch, one commit each.
         ``on_progress``: a callback(dict) per written batch; ``progress``:
         a callback of the reference's progress dicts, a tqdm-like object,
         or True for a bar."""
+        from .blob import blob_columns, encode_blobs
+
         if progress is not None and progress is not False and on_progress is None:
             on_progress = _ProgressAdapter(progress)
         if mode == "append" and isinstance(data, (pads.Dataset, pads.Scanner)):
             data = data.to_reader() if isinstance(data, pads.Scanner) else data.scanner().to_reader()
         if mode == "append" and isinstance(data, (pa.RecordBatchReader, types.GeneratorType)):
+            if self._embedding_functions or blob_columns(self.schema):
+                # each batch is embedded (and its blobs stored) on its own
+                for b in data:
+                    self.add(pa.Table.from_batches([b]) if isinstance(b, pa.RecordBatch) else b,
+                             on_bad_vectors=on_bad_vectors, fill_value=fill_value,
+                             on_progress=on_progress)
+                return
+
             def clean(batches):
                 for b in batches:
                     t = pa.Table.from_batches([b]) if isinstance(b, pa.RecordBatch) else b
@@ -417,7 +460,17 @@ class Table(NotPortedSurface):
                              "version": self._dataset.version})
             self._invalidate_caches()
             return
-        tbl = to_arrow_table(data, schema=self.schema if mode == "append" else None)
+        bcols = blob_columns(self.schema) if mode == "append" else []
+        if bcols:
+            # align against the schema with raw binary in the blob columns,
+            # then replace the payloads by their descriptors
+            ingest = pa.schema([pa.field(f.name, pa.large_binary(), nullable=f.nullable)
+                                if f.name in bcols else f for f in self.schema])
+            ds = self._dataset
+            tbl = encode_blobs(ds.store, ds.root, to_arrow_table(data, schema=ingest), self.schema)
+        else:
+            tbl = to_arrow_table(data, schema=self.schema if mode == "append" else None)
+        tbl = self._apply_embeddings(tbl)
         tbl = sanitize_vectors(tbl, on_bad_vectors, fill_value)
         if on_progress is not None:
             on_progress({"stage": "start", "rows": tbl.num_rows, "bytes": tbl.nbytes})
@@ -467,6 +520,87 @@ class Table(NotPortedSurface):
     def merge_insert(self, on: str | list[str]) -> MergeInsertBuilder:
         return MergeInsertBuilder(self, on)
 
+    # ---------------------------------------------------------- LSM / WAL
+
+    @property
+    def _lsm(self):
+        """The table's LSM store, kept so that its shard writers live
+        across upserts (reference merge/lsm.rs:322-334)."""
+        from .lsm import LsmStore
+
+        cached = self.__dict__.get("_lsm_store")
+        ds = self._dataset
+        if cached is None or cached._ds is not ds:
+            cached = self.__dict__["_lsm_store"] = LsmStore(ds)
+        return cached
+
+    def set_lsm_write_spec(
+        self,
+        mode: str = "unsharded",
+        key_columns: list[str] | str = (),
+        num_shards: int = 1,
+        *,
+        maintained_indexes: list[str] | None = None,
+        writer_config: dict | None = None,
+    ) -> None:
+        """Install the LSM sharding spec (reference table.rs:379-530):
+        ``mode`` bucket, identity or unsharded; ``maintained_indexes=None``
+        keeps every current index fresh on flush (merge/lsm.rs:134-176)."""
+        from .lsm import LsmSpec
+
+        keys = [key_columns] if isinstance(key_columns, str) else list(key_columns)
+        self._lsm.set_spec(LsmSpec(mode, keys, num_shards, maintained_indexes=maintained_indexes,
+                                   writer_config=writer_config))
+
+    def close_lsm_writers(self) -> None:
+        """Drop the cached shard writers (reference close_lsm_writers)."""
+        self._lsm.close_writers()
+
+    def describe_lsm_spec(self) -> dict | None:
+        spec = self._lsm.get_spec()
+        return spec.to_json() if spec else None
+
+    get_lsm_write_spec = describe_lsm_spec
+
+    def drop_lsm_spec(self, *, force: bool = False) -> None:
+        """Remove the spec and the WAL; a WAL that holds rows needs ``force``."""
+        self._lsm.drop_spec(force=force)
+
+    def unset_lsm_write_spec(self, *, force: bool = False) -> None:
+        self.drop_lsm_spec(force=force)
+
+    def flush_lsm(self) -> dict:
+        """Seal every shard, fold the sealed generations into the table in
+        one merge_insert commit, then rebuild the spec's maintained indexes
+        that the fold left stale (on the table's device)."""
+        lsm = self._lsm
+        out = lsm.flush()
+        spec = lsm.get_spec()
+        if out.get("rows_flushed") and spec and spec.maintained_indexes:
+            out["indexes_refreshed"] = self._reindex_stale(only=set(spec.maintained_indexes))
+        self._invalidate_caches()
+        return out
+
+    def checkpoint_lsm(self, timeout: float = 60.0) -> dict:
+        """Seal once, then flush until the sealed generations are in the
+        table (reference table/checkpoint.rs)."""
+        out = self._lsm.checkpoint(timeout=timeout)
+        self._invalidate_caches()
+        return out
+
+    def lsm_stats(self) -> dict:
+        return self._lsm.stats()
+
+    def get_lsm_stats(self, *, include_generation_rows: bool = False) -> dict | None:
+        """The stats, or None when no spec is installed."""
+        s = self._lsm.stats()
+        return s if s.get("enabled") else None
+
+    def compact_lsm(self):
+        """One flush in the background; returns its Job (reference
+        compact_lsm)."""
+        return self._conn._jobs.submit("compact_lsm", self.flush_lsm)
+
     # ------------------------------------------------------------ search
 
     def search(
@@ -490,13 +624,81 @@ class Table(NotPortedSurface):
         """A plain scan: filter, projection, order, offset and limit."""
         return LanceEmptyQueryBuilder(self)
 
-    def _embed_query(self, text: str):
-        """A text query with no vector needs the table's embedding function
-        (reference table.py:718), which the port does not have yet."""
-        raise NotImplementedError(
-            "text queries that need an embedding function are not ported to "
-            "lancedb_tpu_torch yet (ROADMAP A12, embeddings); pass a vector"
-        )
+    def _embed_query(self, text: str, vector_column_name: str | None = None) -> np.ndarray:
+        """A text query's vector from the embedding function of the column
+        (reference table.py:718), computed on the host."""
+        col = vector_column_name or _vector_column_name(self.schema)
+        fn = self._embedding_functions.get(col)
+        if fn is None:
+            raise InvalidInputError(
+                f"cannot embed text query: no embedding function registered for "
+                f"column {col!r}; pass a vector instead"
+            )
+        return np.asarray(fn.compute_query_embeddings(text)[0], dtype=np.float32)
+
+    # ------------------------------------------------------- embeddings
+
+    def _load_embedding_config(self) -> None:
+        """The embedding functions named in the schema's metadata; a
+        function that cannot be created leaves the table without any, as
+        in the reference."""
+        from .embeddings.registry import METADATA_KEY, EmbeddingFunctionRegistry
+
+        raw = (self.__dataset.schema.metadata or {}).get(METADATA_KEY)
+        if not raw:
+            return
+        registry = EmbeddingFunctionRegistry.get_instance()
+        try:
+            self._embedding_functions = registry.parse_functions_from_schema_metadata(raw)
+        except Exception:
+            self._embedding_functions = {}
+
+    def _apply_embeddings(self, tbl: pa.Table) -> pa.Table:
+        """Compute each vector column that is missing or all null from its
+        source column (reference WithEmbeddings, embeddings.rs:130). A
+        multivector function's bags become list<fixed_size_list> rows."""
+        for vec_col, fn in self._embedding_functions.items():
+            present = vec_col in tbl.schema.names
+            if present and tbl.column(vec_col).null_count != tbl.num_rows:
+                continue
+            if fn.source_column not in tbl.schema.names:
+                continue
+            embedded = fn.compute_source_embeddings(tbl.column(fn.source_column).to_pylist())
+            if isinstance(embedded, list) and embedded and np.asarray(embedded[0]).ndim == 2:
+                inner = pa.list_(pa.float32(), int(np.asarray(embedded[0]).shape[1]))
+                arr = pa.array([np.asarray(bag, dtype=np.float32).tolist() for bag in embedded],
+                               type=pa.list_(inner))
+            else:
+                vecs = np.asarray(embedded, dtype=np.float32)
+                arr = pa.FixedSizeListArray.from_arrays(pa.array(vecs.ravel(), type=pa.float32()),
+                                                        vecs.shape[1])
+            if present:
+                i = tbl.schema.get_field_index(vec_col)
+                tbl = tbl.set_column(i, tbl.schema.field(i).name, arr)
+            else:
+                tbl = tbl.append_column(vec_col, arr)
+        return tbl
+
+    # ------------------------------------------------------------- blobs
+
+    def fetch_blobs(self, column: str, row_ids: list[int]) -> list[bytes | None]:
+        """The blob payloads of rows by row address (reference table.rs:744)."""
+        from .blob import fetch_blobs
+
+        return fetch_blobs(self._dataset, column, np.asarray(row_ids, dtype=np.uint64))
+
+    def fetch_blob_files(self, column: str, row_ids: list[int]):
+        """Lazy seekable BlobFile handles of rows' blobs."""
+        from .blob import fetch_blob_files
+
+        return fetch_blob_files(self._dataset, column, np.asarray(row_ids, dtype=np.uint64))
+
+    def fetch_blob_ranges(self, column: str, row_ids: list[int], ranges: list[tuple[int, int]]):
+        """One (start, length) range of each row's blob."""
+        from .blob import fetch_blob_ranges
+
+        return fetch_blob_ranges(self._dataset, column, np.asarray(row_ids, dtype=np.uint64),
+                                 ranges)
 
     _serving_mesh = None
 
@@ -1023,8 +1225,9 @@ class Table(NotPortedSurface):
         self._invalidate_caches()
         return {"compaction": compact, "prune": prune, "indices_rebuilt": rebuilt}
 
-    def _reindex_stale(self) -> int:
-        """Rebuild every index whose fragments are not the live ones. A
+    def _reindex_stale(self, only: set | None = None) -> int:
+        """Rebuild every index (of ``only``'s names, where given: the LSM
+        spec's maintained indexes) whose fragments are not the live ones. A
         vector index is rebuilt from ``_config_from_params``, as the
         reference rebuilds it (ROADMAP §C: the settings it drops)."""
         from .index.fts import build_fts_index
@@ -1035,7 +1238,7 @@ class Table(NotPortedSurface):
         live = {f.id for f in ds.manifest.fragments}
         rebuilt = 0
         for ix in list(ds.manifest.indices):
-            if set(ix.fragment_ids) == live:
+            if (only is not None and ix.name not in only) or set(ix.fragment_ids) == live:
                 continue
             rebuilt += 1
             if ix.index_type in VECTOR_INDEX_TYPES:

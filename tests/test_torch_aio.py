@@ -246,7 +246,13 @@ def test_async_table_identity_and_refusals(dbs):
 
     got, want = _both(dbs, body)
     assert got == want == ("t", [], "t", None, None, None, True)
-    t = arun(arun(dbs[0]()).open_table("t"))
-    for name in ("fetch_blobs", "get_lsm_write_spec"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            getattr(t, name)
+    # the blob and LSM methods are served now: the same answers as the reference's
+    async def served(connect):
+        t = await (await connect()).open_table("t")
+        with pytest.raises(Exception, match="not a blob column") as e:
+            await t.fetch_blobs("text", [0])
+        return (await t.blob_columns(), await t.get_lsm_write_spec(),
+                await t.unset_lsm_write_spec(), type(e.value).__name__)
+
+    got, want = _both(dbs, served)
+    assert got == want == ([], None, None, "InvalidInputError")

@@ -16,6 +16,7 @@ import pytest
 
 import lancedb_tpu
 import lancedb_tpu_torch
+from lancedb_tpu import errors as ref_errors
 from lancedb_tpu import query_fts as ref_q
 from lancedb_tpu.filters.sql import parse_sql_expr as ref_parse
 from lancedb_tpu.index import fts as ref_fts
@@ -23,6 +24,7 @@ from lancedb_tpu.index import scalar as ref_scalar
 from lancedb_tpu.index.tokenizer import Tokenizer as RefTokenizer
 from lancedb_tpu.native import native_available as ref_native_available
 from lancedb_tpu.query import compute_allowed_rowids as ref_allowed
+from lancedb_tpu_torch import errors as port_errors
 from lancedb_tpu_torch import query_fts as port_q
 from lancedb_tpu_torch.filters.sql import parse_sql_expr as port_parse
 from lancedb_tpu_torch.index import fts as port_fts
@@ -196,8 +198,13 @@ def test_tokenize_and_refusals(fts_dbs):
     text = "The Runners were RUNNING"
     assert ([(t.text, t.position) for t in tbls["port"].tokenize(text)]
             == [(t.text, t.position) for t in tbls["ref"].tokenize(text)])
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    # a text query for the vector leg needs an embedding function (and this
+    # table has no vector column): the reference's InvalidInputError in both
+    with pytest.raises(port_errors.InvalidInputError) as got:
         tbls["port"].search("w1", query_type="vector")
+    with pytest.raises(ref_errors.InvalidInputError) as want:
+        tbls["ref"].search("w1", query_type="vector")
+    assert str(got.value) == str(want.value)
     from lancedb_tpu_torch.rerankers import CohereReranker, CrossEncoderReranker
 
     for cls in (CrossEncoderReranker, CohereReranker):

@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pydantic
 import pytest
 import torch
 
@@ -29,6 +30,8 @@ from lancedb_tpu_torch import native, query_fts
 from lancedb_tpu_torch.filters import substrait
 from lancedb_tpu_torch.index import fts, scalar, tokenizer
 from lancedb_tpu_torch.rerankers import LinearCombinationReranker, MRRReranker, RRFReranker
+from lancedb_tpu_torch import blob, context, lsm, pydantic, test_utils
+from lancedb_tpu_torch.embeddings import get_registry, multimodal, providers, rest_providers
 
 rng = np.random.default_rng(0)
 x = rng.standard_normal((600, 16)).astype(np.float32)
@@ -109,6 +112,25 @@ tbl.disable_sharded_serving()
 sds = StreamingDataset(permutation_builder(tbl).shuffle(seed=1).execute(), num_splits=2)
 batch = next(iter(TorchBatchFeeder(sds, 8, columns=["vector"], mesh=make_mesh(devices=["cpu"] * 2))))
 assert [tuple(b.shape) for b in batch["vector"]] == [(4, 16), (4, 16)]
+# embedding functions, a pydantic model, blobs and the LSM write path
+fn = get_registry().get("hash").create(dim=16)
+class Doc(pydantic.LanceModel):
+    id: int
+    text: str = fn.SourceField()
+    vector: pydantic.Vector(16) = fn.VectorField()
+docs = lancedb_tpu_torch.connect(sys.argv[1], device="cpu").create_table("docs", schema=Doc)
+docs.add([{"id": i, "text": f"w{i} w{i + 1} w{i % 3}"} for i in range(40)])
+assert docs.search("w7 w8 w1", query_type="vector").limit(1).to_pydantic(Doc)[0].id == 7
+docs.set_lsm_write_spec("bucket", key_columns=["id"], num_shards=2)
+v = fn.compute_source_embeddings(["new text"])[0].tolist()
+docs.merge_insert("id").when_matched_update_all().when_not_matched_insert_all().use_lsm(
+    ).execute([{"id": 99, "text": "new text", "vector": v}])
+assert docs.query().use_lsm().to_arrow().num_rows == 41 and docs.flush_lsm()["rows_flushed"] == 1
+b = lancedb_tpu_torch.connect(sys.argv[1], device="cpu").create_table(
+    "b", schema=pa.schema([pa.field("id", pa.int64()), blob.blob_field("media")]))
+b.add([{"id": 0, "media": b"payload"}])
+assert b.fetch_blobs("media", [0]) == [b"payload"]
+assert context.contextualize([{"text": "a b c"}]).text_col("text").window(2).to_list()
 assert not any(m == "jax" or m.startswith(("jax.", "lancedb_tpu."))
                for m, mod in sys.modules.items() if mod is not None)
 print("ok")
@@ -147,6 +169,10 @@ def test_no_jax_or_reference_imports():
     assert not bad, bad
 
 
+class _IdModel(pydantic.BaseModel):
+    id: int
+
+
 def test_unported_surface_names_its_roadmap_item(tmp_path):
     import numpy as np
     import pyarrow as pa
@@ -158,20 +184,29 @@ def test_unported_surface_names_its_roadmap_item(tmp_path):
     }))
     assert db.table_names() == ["t"] and db.open_table("t").count_rows() == 4
     for call, item in (
-        (lambda: tbl.search("some text", query_type="vector"), "A12"),
-        (lambda: tbl.search(x[0]).use_lsm(), "A12"),
-        (lambda: tbl.query().use_lsm(), "A12"),
-        (lambda: tbl.merge_insert("id").use_lsm(), "A12"),
-        (lambda: tbl.search(x[0]).to_pydantic(dict), "A12"),
-        (lambda: tbl.fetch_blobs("vector", [0]), "A12"),
-        (lambda: tbl.set_lsm_write_spec(), "A12"),
-        (lambda: tbl.embedding_functions, "A12"),
-        (lambda: db.sql("SELECT 1"), "A12"),
+        (lambda: db.sql("SELECT 1"), "A12b"),
+        (lambda: db.create_namespace(["ns"]), "A12e"),
+        (lambda: lancedb_tpu_torch.connect("db://remote", device="cpu"), "A12e"),
     ):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             call()
     with pytest.raises(AttributeError):
         tbl.no_such_method
+    # what ROADMAP A12a, A12c and A12d lifted is served: a text query on a
+    # table without an embedding function and a search with use_lsm are
+    # refused as the reference refuses them, the rest runs
+    from lancedb_tpu_torch.errors import InvalidInputError
+
+    for call in (lambda: tbl.search("some text", query_type="vector"),
+                 lambda: tbl.search(x[0]).use_lsm().to_arrow(),
+                 lambda: tbl.fetch_blobs("vector", [0])):
+        with pytest.raises(InvalidInputError):
+            call()
+    tbl.set_lsm_write_spec("unsharded", key_columns="id")
+    assert tbl.merge_insert("id").use_lsm()._use_lsm
+    assert tbl.query().use_lsm().to_arrow().num_rows == 4
+    assert tbl.embedding_functions == {} and tbl.blob_columns == []
+    assert len(tbl.search(x[0]).limit(2).to_pydantic(_IdModel)) == 2
 
 
 def test_default_device_is_cuda_without_fallback(tmp_path):

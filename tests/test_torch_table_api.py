@@ -26,6 +26,7 @@ import time
 
 import numpy as np
 import pyarrow as pa
+import pydantic
 import pytest
 import torch
 
@@ -144,8 +145,21 @@ def test_mutation_matches_reference(plain_pair, case):
 
 
 def test_use_lsm_stays_refused(plain_pair):
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        plain_pair[0].merge_insert("id").use_lsm()
+    """The LSM write path is served now (it was refused before its slice):
+    an upsert through the WAL scans as the reference's, and a search still
+    refuses use_lsm, as the reference's does."""
+    port, ref = plain_pair
+    for t in plain_pair:
+        t.set_lsm_write_spec("bucket", key_columns=["id"], num_shards=3)
+        stats = (t.merge_insert("id").when_matched_update_all().when_not_matched_insert_all()
+                 .use_lsm().execute(UPSERT))
+        assert stats["num_rows"] == UPSERT.num_rows and t.count_rows() == N
+    _same_rows(port.query().use_lsm().to_arrow(), ref.query().use_lsm().to_arrow())
+    with pytest.raises(lancedb_tpu_torch.InvalidInputError, match="use_lsm"):
+        port.search(Q[0]).use_lsm().to_arrow()
+    for t in plain_pair:
+        t.flush_lsm()
+    _same_rows(port.to_arrow(), ref.to_arrow())
 
 
 # ------------------------------------------------- search after mutations
@@ -559,8 +573,12 @@ def test_builder_outputs_match_reference(pair):
         port.query().fragment_ids([0]).nearest_to(Q[0]).to_arrow()
     with pytest.raises(ValueError):
         port.search(Q[0]).limit(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        port.search(Q[0]).to_pydantic(dict)
+    class Hit(pydantic.BaseModel):
+        id: int
+        category: int
+
+    assert port.search(Q[0]).nprobes(4).limit(5).to_pydantic(Hit) == \
+        ref.search(Q[0]).nprobes(4).limit(5).to_pydantic(Hit)
 
 
 def test_nearest_to_text_and_fts_order_by(tmp_path):
@@ -755,6 +773,63 @@ def test_concurrent_readers_and_a_writer(tmp_path):
     assert not any(t.is_alive() for t in threads)
     assert not errors, errors
     assert table.count_rows() == N + 50
+
+
+def test_writer_racing_readers_same_handle():
+    """ROADMAP A0's scenario (tests/test_concurrency.py, same name) on the
+    port: one writer and three readers share one handle at
+    read_consistency_interval=0, the switch interval shortened. Every
+    search returns its k hits, every filtered hit passes the filter, and
+    nothing raises (the reference's check-then-read caches raised
+    ``KeyError`` here, ROADMAP §C C2)."""
+    rng = np.random.default_rng(1)
+    db = lancedb_tpu_torch.connect("memory://conc-w", device="cpu", read_consistency_interval=0)
+    t = db.create_table("w", [
+        {"id": i, "cat": i % 5, "vector": list(rng.standard_normal(8).astype(float))}
+        for i in range(500)
+    ], mode="overwrite")
+    t.create_index(index_type="IVF_FLAT", num_partitions=4)
+    errs, stop = [], threading.Event()
+
+    def writer():
+        wrng = np.random.default_rng(100)
+        try:
+            nxt = 500
+            while not stop.is_set():
+                t.add([{"id": nxt + j, "cat": (nxt + j) % 5,
+                        "vector": list(wrng.standard_normal(8).astype(float))} for j in range(25)])
+                nxt += 25
+        except Exception as e:  # reported below
+            errs.append(("writer", repr(e)))
+
+    def reader(wid):
+        rrng = np.random.default_rng(200 + wid)
+        try:
+            for _ in range(8):
+                q = rrng.standard_normal(8).astype(np.float32)
+                assert len(t.search(q).limit(5).to_list()) == 5
+                r = t.search(q).where("cat = 1").limit(3).to_list()
+                assert all(x["cat"] == 1 for x in r)
+        except Exception as e:  # reported below
+            errs.append((wid, repr(e)))
+
+    w = threading.Thread(target=writer)
+    rs = [threading.Thread(target=reader, args=(i,)) for i in range(3)]
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        w.start()
+        for r in rs:
+            r.start()
+        for r in rs:
+            r.join(timeout=120)
+    finally:
+        stop.set()
+        sys.setswitchinterval(switch)
+    w.join(timeout=60)
+    assert not any(th.is_alive() for th in [w, *rs])
+    assert not errs, errs[:3]
+    assert t.count_rows() >= 500
 
 
 @pytest.mark.parametrize("source", ["generator", "reader", "dataset", "table"])
