@@ -28,9 +28,9 @@ Phases:
      (1402 blocks of pmax 1224, D 128, 128 queries, 27 probes), for f32
      and bf16 storage and the l2, cosine and dot forms, and times them.
      Kernel times are CUDA events around single calls: ``ms`` back to
-     back, as a caller meets them (the host's launch included); for B1,
-     B2 and the plan also ``device_ms`` (behind a spin kernel, so the
-     host's launch is hidden) and for B1 and B2 ``cold_ms`` (L2 flushed by
+     back, as a caller meets them (the host's launch included); for B1-B4
+     and the plan also ``device_ms`` (behind a spin kernel, so the
+     host's launch is hidden) and for B1-B4 ``cold_ms`` (L2 flushed by
      a 128 MB write before each call).
      Then it drives the probes of the ADC inner loop (S1, both designs,
      lancedb_tpu_torch.probes.ab_adc8) and of the shared-memory gather
@@ -292,9 +292,10 @@ def kernel_record(counter: str, name: str, max_abs: float, ms: float, plain_ms: 
 
 def check_flat(kind: str, args, label: str) -> dict:
     """Hold B2 (kind 'grouped') or B4 ('pair') against the plain version
-    on ``args``, time both, and compute the bound. For B2 also the launch
-    alone on its plan, and both on the card alone and with L2 flushed
-    before each call (cold). Raises on disagreement."""
+    on ``args``, time both, also on the card alone and with L2 flushed
+    before each call (cold), and compute the bound. For B2 also the
+    launch alone on its plan; for B4 its geometry and the bytes any
+    per-pair design reads. Raises on disagreement."""
     import torch
 
     from lancedb_tpu_torch.ops import flat_scan
@@ -309,13 +310,21 @@ def check_flat(kind: str, args, label: str) -> dict:
     max_abs = compare(fn(*args), want, label)
     ms = cuda_ms(lambda: fn(*args))
     plain_ms = cuda_ms(lambda: flat_scan.ivf_flat_scan_reference(*args))
-    extra = {}
+    extra = {"cold_ms": cuda_ms_cold(lambda: fn(*args)),
+             "device_ms": device_ms(lambda: fn(*args))}
     probe_ids, queries, vectors, norms, alpha, gamma = args
     q, np_ = probe_ids.shape
     p, pmax, d = vectors.shape
+    if kind == "pair":
+        extra["geometry"] = flat_scan.pair_geometry(
+            q, np_, pmax, d, vectors.element_size(),
+            torch.cuda.get_device_properties(vectors.device).multi_processor_count)
+        # what any per-pair design reads: each pair's block and norms, and
+        # the output, at the card's memory rate (the function's bound
+        # reads each probed block once)
+        per_pair = q * np_ * pmax * (d * vectors.element_size() + 4 + 4)
+        extra["per_pair_bytes_ms"] = per_pair / HBM_BYTES_PER_S * 1e3
     if kind == "grouped":
-        extra["cold_ms"] = cuda_ms_cold(lambda: fn(*args))
-        extra["device_ms"] = device_ms(lambda: fn(*args))
         # the launch alone, on a plan made beforehand
         gpid, pair_of_slot, g = grouped_plan(probe_ids, p, 8)
         out = torch.empty((q, np_, pmax), device=vectors.device)
@@ -507,32 +516,41 @@ def check_adc(args, label: str) -> dict:
 def check_adc_grouped(args, qpc: int, label: str, b1_ms: float) -> dict:
     """Hold the grouped ADC kernel (B3) at ``qpc`` against its plain
     version on ``args`` (and, where K > 64 keeps the LUT in f32, against
-    B1), time both, the launch alone and the groups, and compute the
-    bound, which is B1's on the same inputs; ``b1_ms`` is B1's time on
-    them. Raises on disagreement."""
+    B1), time both (B3 also on the card alone and cold), the launch alone
+    and the groups, and compute the bound, which is B1's on the same
+    inputs; ``b1_ms`` is B1's time on them. Raises on disagreement."""
     import torch
 
     from lancedb_tpu_torch.ops import adc
+    from lancedb_tpu_torch.ops.cuda_build import max_smem_bytes
     from lancedb_tpu_torch.ops.util import grouped_plan
-    from lancedb_tpu_torch.probes.common import compare, cuda_ms
+    from lancedb_tpu_torch.probes.common import compare, cuda_ms, cuda_ms_cold, device_ms
 
     probe_ids, dlut, codes = args[:3]
     k = dlut.shape[2]
     saved = dict(adc.launch_counts)  # comparison launches do not count
     got = adc.ivf_pq_adc_grouped_scan(*args, qpc=qpc)
     max_abs = compare(got, adc.ivf_pq_adc_grouped_scan_reference(*args), label)
-    extra = {}
+    extra = {"geometry": adc.grouped_geometry(codes.shape[1], k, qpc, codes.shape[2],
+                                              max_smem_bytes())}
     if k > adc.SELECT_MAX_K:
         extra["max_abs_err_vs_b1"] = compare(got, adc.ivf_pq_adc_scan(*args), f"{label} vs B1")
     del got
     ms = cuda_ms(lambda: adc.ivf_pq_adc_grouped_scan(*args, qpc=qpc))
+    extra["device_ms"] = device_ms(lambda: adc.ivf_pq_adc_grouped_scan(*args, qpc=qpc))
+    extra["cold_ms"] = cuda_ms_cold(lambda: adc.ivf_pq_adc_grouped_scan(*args, qpc=qpc))
     plain_ms = cuda_ms(lambda: adc.ivf_pq_adc_grouped_scan_reference(*args), reps=3)
-    # the launch alone, without the grouping of the pairs (torch ops)
+    # the launch alone, without the grouping of the pairs (its plan kernel)
     gpid, pair_of_slot, g = grouped_plan(probe_ids, codes.shape[0], qpc)
     out = torch.empty((probe_ids.shape[0], probe_ids.shape[1], codes.shape[2]),
                       device=codes.device)
-    kernel_only_ms = cuda_ms(lambda: adc.launch_adc_grouped(gpid, pair_of_slot, g, qpc, *args,
-                                                            out))
+
+    def alone():
+        adc.launch_adc_grouped(gpid, pair_of_slot, g, qpc, *args, out)
+
+    kernel_only_ms = cuda_ms(alone)
+    extra["kernel_only_device_ms"] = device_ms(alone)
+    extra["kernel_only_cold_ms"] = cuda_ms_cold(alone)
     groups = int((pair_of_slot.view(g, qpc)[:, 0] >= 0).sum())
     adc.launch_counts.update(saved)
     bytes_ms, ops_ms, shape = adc_bound(args)

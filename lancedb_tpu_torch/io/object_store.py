@@ -8,7 +8,8 @@ monotonically-versioned manifest; `put_if_absent` is the single
 atomic primitive the MVCC layer is built on.
 
 Backends:
-  * LocalStore   — POSIX dirs; atomicity via O_EXCL + rename.
+  * LocalStore   — POSIX dirs; atomicity via a temporary file published
+                   with link (conditional create) or rename (overwrite).
   * MemoryStore  — process-local dict keyed by URI; `memory://` databases
                    (the reference supports the same scheme for tests).
   * IoTrackingStore — wrapper counting IOPS/bytes for tests and
@@ -126,17 +127,35 @@ class LocalStore(ObjectStore):
         os.replace(tmp, p)
 
     def put_if_absent(self, path: str, data: bytes) -> bool:
+        """Write the bytes to a temporary file of a unique name, fsync it,
+        then publish it with ``os.link``, which fails when ``path``
+        exists: of racing committers exactly one gets True, and no reader
+        ever sees ``path`` before its last byte (a path created first and
+        written after is visible, empty, to a reader that lists the
+        directory). The temporary name starts with a dot and ends in
+        ``.tmp``, so no lister takes it for a manifest, a tag or a
+        marker."""
+        import uuid as _uuid
+
         p = self._abs(path)
-        os.makedirs(os.path.dirname(p), exist_ok=True)
+        parent, name = os.path.split(p)
+        os.makedirs(parent, exist_ok=True)
+        if os.path.exists(p):
+            return False
+        tmp = os.path.join(parent, f".{name}.{_uuid.uuid4().hex}.tmp")
         try:
-            fd = os.open(p, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+            with open(tmp, "wb") as f:
+                f.write(data)
+                f.flush()
+                os.fsync(f.fileno())
+            os.link(tmp, p)
         except FileExistsError:
             return False
-        try:
-            os.write(fd, data)
-            os.fsync(fd)
         finally:
-            os.close(fd)
+            try:
+                os.remove(tmp)
+            except FileNotFoundError:
+                pass
         return True
 
     def delete(self, path: str) -> None:

@@ -21,14 +21,12 @@ rounded to bf16, as the TPU kernel's one-hot cell does (see
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
-from .cuda_build import launch, launch_counts, load, max_smem_bytes
+from .cuda_build import launch, launch_counts, max_smem_bytes
 from .cuda_build import reset_launch_counts  # noqa: F401
-from .util import MAX_QPC, grouped_plan, round_up
+from .util import MAX_QPC, cdiv, grouped_plan, round_up
 from .util import check_tensor as _check
 
 # the index layout the reference's kernel requires, kept so both packages
@@ -38,8 +36,11 @@ S_ALIGN = 8
 # codebook size up to which the reference's grouped kernel takes its
 # one-hot cell, whose matrix product rounds the LUT to bf16
 SELECT_MAX_K = 64
-# shared memory the grouped kernel gives the LUTs it stages at once
-GROUPED_LUT_BUDGET = 64 * 1024
+# bytes of one of the grouped kernel's two code stages (S x ts slots)
+GROUPED_CODE_STAGE = 32 * 1024
+# the grouped kernel's static shared memory: pair ids, query rows and
+# bases of up to MAX_QPC queries
+GROUPED_STATIC_SMEM = 3 * 4 * MAX_QPC
 # bytes of gathered codes and partial sums one chunk of B3's plain version holds
 _CHUNK_BYTES = 1 << 28
 
@@ -158,33 +159,50 @@ def ivf_pq_adc_grouped_scan_reference(
     return out
 
 
-def _grouped_lpc(s: int, k: int, qpc: int) -> tuple[int, int]:
-    """(LUTs the grouped kernel stages at once, its shared memory bytes)."""
-    lpc = max(1, min(qpc, GROUPED_LUT_BUDGET // (s * k * 4)))
-    fn = load("adc_grouped_scan").adc_grouped_scan_smem_bytes
-    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
-    return lpc, fn(s, k, lpc)
+def grouped_geometry(s: int, k: int, qpc: int, pmax: int, smem_limit: int) -> dict:
+    """Launch geometry of the grouped kernel (``csrc/adc_grouped_scan.cu``)
+    on a card whose blocks may use ``smem_limit`` bytes of shared memory:
+
+      ts:      slots of a code tile, a multiple of 16: the whole partition
+               where S x ts fits GROUPED_CODE_STAGE, else as few equal
+               tiles as fit it;
+      lpc:     LUTs staged at once: as many of the group's qpc as leave
+               room for a second block on the SM (an SM holds the limit
+               and 1 KiB more, and 1 KiB a block), else as many as one
+               block holds; bf16 entries for K ≤ 64;
+      smem:    the block's dynamic shared memory, two code stages and lpc
+               LUTs, as the kernel's ``adc_grouped_scan_smem_bytes``
+               counts.
+
+    Raises where not even one LUT fits beside the code stages."""
+    lut_bytes = s * k * (2 if k <= SELECT_MAX_K else 4)
+    p16 = round_up(pmax, 16)
+    ntiles = max(1, cdiv(s * p16, GROUPED_CODE_STAGE))
+    ts = round_up(cdiv(p16, ntiles), 16)
+    stages = 2 * s * ts
+    for budget in ((smem_limit - 1024) // 2, smem_limit):
+        lpc = min(qpc, (budget - GROUPED_STATIC_SMEM - stages) // lut_bytes)
+        if lpc >= 1:
+            return {"ts": ts, "lpc": lpc, "smem": stages + lpc * lut_bytes}
+    raise ValueError(
+        f"grouped ADC scan at S={s}, K={k} needs {stages + lut_bytes + GROUPED_STATIC_SMEM} "
+        f"bytes of shared memory for its code stages and one LUT; the card allows {smem_limit}"
+    )
 
 
 def launch_adc_grouped(gpid, pair_of_slot, g: int, qpc: int, probe_ids, dlut, codes, rnorms,
                        qc_dots, qn2, out) -> None:
     """One launch of the grouped kernel on a plan from ``grouped_plan``
     (arguments already checked), writing ``out`` (Q, NP, pmax)."""
-    q, np_ = probe_ids.shape
+    np_ = probe_ids.shape[1]
     _, s, pmax = codes.shape
     k = dlut.shape[2]
-    lpc, smem = _grouped_lpc(s, k, qpc)
-    limit = max_smem_bytes()
-    if smem > limit:
-        raise ValueError(
-            f"grouped ADC scan at S={s}, K={k} needs {smem} bytes of shared memory for its "
-            f"code tile and one LUT; the card allows {limit}"
-        )
+    geo = grouped_geometry(s, k, qpc, pmax, max_smem_bytes())
     launch(
         "adc_grouped_scan",
         [gpid.data_ptr(), pair_of_slot.data_ptr(), dlut.data_ptr(), codes.data_ptr(),
          rnorms.data_ptr(), qc_dots.data_ptr(), qn2.data_ptr(), out.data_ptr()],
-        [g, qpc, lpc, np_, s, k, pmax, int(k <= SELECT_MAX_K)], codes.device,
+        [g, qpc, geo["lpc"], np_, s, k, pmax, geo["ts"], int(k <= SELECT_MAX_K)], codes.device,
     )
 
 

@@ -24,10 +24,19 @@ card; for tensors on the CPU both use the plain torch version,
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .cuda_build import launch, launch_counts
-from .util import MAX_QPC, check_tensor, grouped_plan
+from .util import MAX_QPC, check_tensor, grouped_plan, round_up
+
+# bytes of one of the per-pair kernel's two row stages
+PAIR_STAGE = 32 * 1024
+# shared memory of one SM and resident blocks of 256 threads an SM holds (H100)
+SM_SMEM, SM_BLOCKS = 228 * 1024, 8
+# waves of resident blocks the per-pair grid aims at
+PAIR_WAVES = 4
 
 
 def ivf_flat_scan_reference(
@@ -118,6 +127,40 @@ def ivf_flat_grouped_scan(
     return out
 
 
+def pair_geometry(q: int, np_: int, pmax: int, d: int, esize: int, sms: int) -> dict:
+    """Launch geometry of the per-pair kernel (``csrc/ivf_flat_scan.cu``)
+    for a card of ``sms`` SMs, on (Q, NP) pairs of blocks of pmax rows of
+    D elements of ``esize`` bytes:
+
+      pitch:       bytes of a staged row, D x esize rounded up to 16;
+      lanes, cpl:  lanes that share a row and 16-byte chunks each takes
+                   (8 x 4 up to 512-byte rows, then 16 x 4, 32 x 4,
+                   32 x 16);
+      tile_rows:   rows of one of the two stages, about PAIR_STAGE bytes,
+                   a multiple of the rows one pass of the block's 8 warps
+                   sums (8 x 32 / lanes), no more than pmax needs;
+      npb:         probes of one query a block takes, so that the grid
+                   is about PAIR_WAVES waves of resident blocks;
+      smem:        the block's dynamic shared memory, as the kernel's
+                   ``ivf_flat_scan_smem_bytes`` counts.
+
+    Raises on rows wider than 512 chunks (D above 2048 f32 or 4096 bf16)."""
+    pitch = round_up(d * esize, 16)
+    nchunks = pitch // 16
+    for lanes, cpl in ((8, 4), (16, 4), (32, 4), (32, 16)):
+        if nchunks <= lanes * cpl:
+            break
+    else:
+        raise ValueError(f"per-pair scan rows of {pitch} bytes exceed {32 * 16 * 16}")
+    unit = 8 * (32 // lanes)
+    tile_rows = min(max(unit, PAIR_STAGE // pitch // unit * unit), round_up(max(pmax, 1), unit))
+    smem = 2 * tile_rows * pitch
+    per_sm = max(1, min(SM_BLOCKS, SM_SMEM // (smem + 1024)))
+    npb = max(1, min(np_, q * np_ // (PAIR_WAVES * sms * per_sm)))
+    return {"pitch": pitch, "lanes": lanes, "cpl": cpl, "tile_rows": tile_rows, "npb": npb,
+            "smem": smem}
+
+
 def ivf_flat_scan(
     probe_ids: torch.Tensor,  # (Q, NP) int32
     queries: torch.Tensor,    # (Q, D) f32
@@ -127,9 +170,10 @@ def ivf_flat_scan(
     gamma: torch.Tensor,      # (Q,) f32
 ) -> torch.Tensor:
     """Per-pair probe-scan distances → (Q, NP, pmax) f32: one CUDA block
-    per (query, probe, slot tile) on the card, the plain version on the
-    CPU. The same function as ``ivf_flat_grouped_scan``; every pair reads
-    its block."""
+    per (query, a few of its probes) on the card, streaming each probed
+    block's rows through shared memory; the plain version on the CPU. The
+    same function as ``ivf_flat_grouped_scan``; every pair reads its
+    block."""
     dev = vectors.device
     if dev.type == "cpu":
         return ivf_flat_scan_reference(probe_ids, queries, vectors, norms, alpha, gamma)
@@ -139,11 +183,18 @@ def ivf_flat_scan(
     out = torch.empty((q, np_, pmax), dtype=torch.float32, device=dev)
     if q * np_ == 0 or pmax == 0:
         return out
+    geo = pair_geometry(q, np_, pmax, d, vectors.element_size(), _sm_count(dev))
     launch(
         "ivf_flat_scan",
         [probe_ids.data_ptr(), queries.data_ptr(), vectors.data_ptr(), norms.data_ptr(),
          alpha.data_ptr(), gamma.data_ptr(), out.data_ptr()],
-        [q, np_, pmax, d, int(vectors.dtype == torch.bfloat16)], dev,
+        [q, np_, pmax, d, int(vectors.dtype == torch.bfloat16), geo["npb"], geo["tile_rows"],
+         geo["pitch"], geo["lanes"], geo["cpl"]], dev,
     )
     launch_counts["ivf_flat_scan"] += 1
     return out
+
+
+@functools.cache
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count

@@ -96,6 +96,96 @@ def test_grouped_small_codebook_sums_the_bf16_lut():
                       adc.ivf_pq_adc_scan_reference(*map(torch.from_numpy, args8)))
 
 
+# (K, S, qpc, case shape): qpc 1 / 8 / 16 / 32 at K 16 / 64 / 256; the
+# qpc-32 cases put every query on one partition (a group of 32 and more)
+EDGE_CASES = [
+    (16, 16, 1, {}),
+    (16, 32, 32, {"P": 4, "Q": 36, "NP": 3, "hot": True}),
+    (64, 8, 8, {}),
+    (64, 16, 16, {"P": 4, "Q": 20, "NP": 3, "hot": True}),
+    (256, 8, 1, {}),
+    (256, 8, 32, {"P": 4, "Q": 36, "NP": 3, "hot": True}),
+    (256, 16, 8, {"PMAX": 2176, "Q": 4, "NP": 2}),  # three unequal code tiles on the card
+]
+
+
+def _edge_case(K, S, hot=False, **shape):
+    """``_case`` inputs; with ``hot`` every query also probes partition 0
+    in column 2, so its groups fill at any qpc."""
+    args = _case(K, S, **shape)
+    if hot:
+        args[0][:, 2] = 0
+    return args
+
+
+@pytest.mark.parametrize("K,S,qpc,shape", EDGE_CASES,
+                         ids=[f"K{k}-S{s}-qpc{q}" for k, s, q, _ in EDGE_CASES])
+def test_grouped_edges_match_pallas_interpret(K, S, qpc, shape):
+    """The plain version against the Pallas kernel in interpret mode at
+    the edges the card's kernel handles: qpc 1 to 32, K 16 / 64 (bf16
+    LUT) and 256 (f32), partitions probed by more queries than a group
+    holds, repeated probes, padding and penalties (inf where they meet)."""
+    import jax.numpy as jnp
+
+    from lancedb_tpu.ops.pallas_adc import ivf_pq_adc_grouped_scan_pallas
+
+    args = _edge_case(K, S, **shape)
+    want = np.asarray(ivf_pq_adc_grouped_scan_pallas(*map(jnp.asarray, args), qpc=qpc,
+                                                     interpret=True))
+    assert np.isinf(want).any() and (want >= 1.5e38).any() and (want < 1.5e38).any()
+    got = adc.ivf_pq_adc_grouped_scan(*map(torch.from_numpy, args), qpc=qpc)
+    _assert_adc_close(got.numpy(), want)
+
+
+H100_SMEM = 232_448  # shared memory one block may opt into on an H100
+
+
+@pytest.mark.parametrize("S,K,qpc,pmax,want", [
+    (16, 256, 8, 1152, {"ts": 1152, "lpc": 4, "smem": 2 * 16 * 1152 + 4 * 16384}),
+    (16, 256, 16, 1152, {"ts": 1152, "lpc": 4, "smem": 2 * 16 * 1152 + 4 * 16384}),
+    (32, 16, 8, 1152, {"ts": 576, "lpc": 8, "smem": 2 * 32 * 576 + 8 * 1024}),
+    (32, 16, 32, 2176, {"ts": 736, "lpc": 32, "smem": 2 * 32 * 736 + 32 * 1024}),
+    (192, 16, 32, 300, {"ts": 160, "lpc": 8, "smem": 2 * 192 * 160 + 8 * 6144}),
+    (96, 256, 8, 128, {"ts": 128, "lpc": 2, "smem": 2 * 96 * 128 + 2 * 98304}),
+    (8, 256, 8, 8192, {"ts": 4096, "lpc": 6, "smem": 2 * 8 * 4096 + 6 * 8192}),
+], ids=["8bit-qpc8", "8bit-qpc16", "4bit-qpc8", "4bit-ragged", "S192-pmax300", "S96-one-block",
+        "pmax8192"])
+def test_grouped_geometry(S, K, qpc, pmax, want):
+    """The launch geometry the wrapper computes: code tiles of a multiple
+    of 16 slots that cover pmax in as few equal-sized tiles as fit
+    GROUPED_CODE_STAGE, and as many LUTs a pass as leave room for two blocks on an SM (bf16 entries
+    for K <= 64), or as one block holds where two do not fit (S 96, K
+    256), all within the card's limit."""
+    geo = adc.grouped_geometry(S, K, qpc, pmax, H100_SMEM)
+    assert geo == want
+    ts = geo["ts"]
+    ntiles = -(-pmax // ts)
+    assert ts % 16 == 0 and (ntiles - 1) * ts < pmax <= ntiles * ts
+    assert S * ts <= adc.GROUPED_CODE_STAGE or ts == 16
+    assert geo["smem"] + adc.GROUPED_STATIC_SMEM <= H100_SMEM
+    with pytest.raises(ValueError, match="one LUT"):
+        adc.grouped_geometry(S, K, qpc, pmax, 2 * S * ts + adc.GROUPED_STATIC_SMEM + 100)
+
+
+@pytest.mark.parametrize("qpc", [1, 8, 16, 32])
+def test_plan_puts_padding_groups_last(qpc):
+    """What the kernel's walk relies on: in every plan the groups with a
+    live pair come first, and each group's live slots first, so a block
+    stops at its first group of padding only. Random probes, repeated
+    probes and one partition probed by every query."""
+    from lancedb_tpu_torch.ops.util import grouped_plan
+
+    probe_ids = _edge_case(16, 8, P=9, Q=40, NP=4, hot=True, seed=qpc)[0]
+    gpid, pos, g = grouped_plan(torch.from_numpy(probe_ids), 9, qpc)
+    live = pos.numpy().reshape(g, qpc) >= 0
+    first = live[:, 0]
+    assert not np.any(first[1:] & ~first[:-1])  # live groups are a prefix
+    assert np.all(live[:, 1:] <= live[:, :-1])  # live slots are a prefix
+    if qpc > 1:
+        assert first.sum() < g  # the bound leaves groups of padding only
+    assert live.sum() == probe_ids.size
+
+
 def _ivfpq_arrays(K=16, S=16, seed=2):
     """A small l2 IVF_PQ index as the reference's arrays, padded slots
     included."""
@@ -232,6 +322,47 @@ def test_cuda_grouped_kernel_matches_plain_version(K, S, qpc):
                       adc.ivf_pq_adc_grouped_scan_reference(*args).cpu().numpy())
     with pytest.raises(TypeError):
         adc.ivf_pq_adc_grouped_scan(args[0].long(), *args[1:], qpc=qpc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pmax", [300, 2176])
+@pytest.mark.parametrize("qpc", [1, 8, 16, 32])
+@pytest.mark.parametrize("K,S", [(16, 32), (64, 16), (256, 16)])
+def test_cuda_grouped_kernel_at_edges(K, S, qpc, pmax):
+    """B3 against its plain version at qpc 1 to 32, K 16 / 64 / 256, pmax
+    300 (no 16-byte copies, one float a store) and 2176 (three unequal
+    code tiles), a partition probed by all 40 queries (more than a group
+    holds, and passes of LUTs at qpc 32), repeated probes, padding and
+    penalties, one at inf on a real slot."""
+    _cuda_or_skip()
+    args = _edge_case(K, S, P=24, PMAX=pmax, Q=40, NP=6, hot=True, seed=qpc)
+    args[3][:, 5] = np.inf
+    t = [torch.from_numpy(a).cuda() for a in args]
+    before = adc.launch_counts["ivf_pq_adc_grouped_scan"]
+    got = adc.ivf_pq_adc_grouped_scan(*t, qpc=qpc)
+    torch.cuda.synchronize()
+    assert adc.launch_counts["ivf_pq_adc_grouped_scan"] == before + 1
+    _assert_adc_close(got.cpu().numpy(), adc.ivf_pq_adc_grouped_scan_reference(*t).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,K,qpc,pmax", [(16, 256, 8, 1152), (16, 256, 16, 1152),
+                                          (32, 16, 8, 1152), (192, 16, 32, 300)])
+def test_cuda_grouped_geometry_matches_the_library(S, K, qpc, pmax):
+    """The wrapper's shared-memory arithmetic is the kernel's: the
+    library's count of the dynamic bytes for the same geometry, its static
+    bytes, and the card's limit."""
+    import ctypes
+
+    from lancedb_tpu_torch.ops.cuda_build import load, max_smem_bytes, static_smem_bytes
+
+    _cuda_or_skip()
+    geo = adc.grouped_geometry(S, K, qpc, pmax, max_smem_bytes())
+    fn = load("adc_grouped_scan").adc_grouped_scan_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_int
+    assert fn(S, K, geo["lpc"], geo["ts"], int(K <= adc.SELECT_MAX_K)) == geo["smem"]
+    assert static_smem_bytes("adc_grouped_scan") == adc.GROUPED_STATIC_SMEM
+    assert geo["smem"] + adc.GROUPED_STATIC_SMEM <= max_smem_bytes()
 
 
 @pytest.mark.cuda

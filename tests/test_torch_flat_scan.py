@@ -123,6 +123,58 @@ def test_group_padding_does_not_leak(same_probes):
     _assert_close(_plain(args), _pallas("grouped", args, qpc=4))
 
 
+# (metric, bf16, case shape): pmax 200 and 72 (unequal row tiles on the
+# card), every query on one partition twice (a repeated probe in every
+# pair), bf16 storage
+PAIR_EDGES = [
+    ("l2", False, {"PMAX": 200}),
+    ("cosine", True, {"PMAX": 200, "NP": 4}),
+    ("dot", True, {"PMAX": 72, "Q": 9}),
+    ("l2", False, {"PMAX": 72, "Q": 6, "NP": 4, "same_probes": True}),
+]
+
+
+@pytest.mark.parametrize("metric,bf16,shape", PAIR_EDGES,
+                         ids=["l2-pmax200", "cosine-bf16", "dot-bf16-pmax72", "l2-repeated"])
+def test_pair_edges_match_pallas_interpret(metric, bf16, shape):
+    """The plain version (and the wrapper on CPU tensors) against the
+    per-pair Pallas kernel in interpret mode at the edges of the card's
+    kernel: row tiles that do not divide pmax, bf16 storage, repeated
+    probes, padding and penalties (inf where they meet)."""
+    args = list(_case(metric, **shape))
+    if shape.get("same_probes"):
+        args[0][:, 1] = args[0][:, 0]
+    args[3][:, 1] = np.inf  # a penalty at inf on a real slot of every block
+    want = _pallas("pair", args, bf16=bf16)
+    assert np.isinf(want).any() and (want < 1.5e38).any()
+    _assert_close(_plain(args, bf16=bf16), want)
+
+
+@pytest.mark.parametrize("D,esize,want", [
+    (128, 4, {"pitch": 512, "lanes": 8, "cpl": 4, "tile_rows": 64, "npb": 2, "smem": 65536}),
+    (128, 2, {"pitch": 256, "lanes": 8, "cpl": 4, "tile_rows": 128, "npb": 2, "smem": 65536}),
+    (37, 4, {"pitch": 160, "lanes": 8, "cpl": 4, "tile_rows": 192, "npb": 2, "smem": 61440}),
+    (480, 4, {"pitch": 1920, "lanes": 32, "cpl": 4, "tile_rows": 16, "npb": 2, "smem": 61440}),
+    (1536, 4, {"pitch": 6144, "lanes": 32, "cpl": 16, "tile_rows": 8, "npb": 3, "smem": 98304}),
+], ids=["f32-D128", "bf16-D128", "f32-D37", "f32-D480", "f32-D1536"])
+def test_pair_geometry(D, esize, want):
+    """The per-pair kernel's launch geometry at the IVF_FLAT path's
+    shapes (128 queries, 27 probes, pmax 1224, 132 SMs): rows padded to
+    16 bytes, lanes x chunks covering a row, stages of about PAIR_STAGE
+    bytes in whole passes of the block's warps, and a grid of about
+    PAIR_WAVES waves."""
+    geo = flat_scan.pair_geometry(128, 27, 1224, D, esize, 132)
+    assert geo == want
+    assert geo["pitch"] // 16 <= geo["lanes"] * geo["cpl"]
+    assert geo["tile_rows"] % (8 * 32 // geo["lanes"]) == 0
+    assert geo["smem"] == 2 * geo["tile_rows"] * geo["pitch"]
+    # few pairs: one probe a block; a tiny block: one stage covers it
+    assert flat_scan.pair_geometry(4, 3, 1224, D, esize, 132)["npb"] == 1
+    assert flat_scan.pair_geometry(4, 3, 5, D, esize, 132)["tile_rows"] == 8 * 32 // want["lanes"]
+    with pytest.raises(ValueError, match="exceed"):
+        flat_scan.pair_geometry(4, 3, 10, 8192 // esize + 1, esize, 132)
+
+
 @pytest.mark.parametrize("qpc", [4, 8])
 @pytest.mark.parametrize("same_probes", [False, True])
 def test_group_probe_pairs_matches_reference(qpc, same_probes):
@@ -258,3 +310,43 @@ def test_cuda_grouped_kernel_at_widths_and_group_sizes(D, dtype, qpc):
     t[2] = t[2].to(dtype)
     got = flat_scan.ivf_flat_grouped_scan(*t, qpc=qpc)
     _assert_close(got.cpu().numpy(), flat_scan.ivf_flat_scan_reference(*t).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pmax", [200, 1224])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [37, 96, 128, 200, 480, 1536])
+def test_cuda_pair_kernel_at_edges(D, dtype, pmax):
+    """B4 against the plain version at D 37 (rows staged by plain loads),
+    96, 128, 200, 480 and 1536 (8, 16 and 32 lanes a row, 4 and 16 chunks
+    a lane), f32 and bf16 storage, pmax 200 and 1224 (row tiles that do
+    not divide it), a partition probed twice by every query, padding and
+    penalties, one at inf."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flat scan kernels have no CPU mode")
+    args = list(_case("l2", P=12, PMAX=pmax, D=D, Q=11, NP=5, seed=D))
+    args[0][:, 3] = args[0][:, 2] = 4
+    args[3][:, 1] = np.inf
+    t = [torch.from_numpy(a).cuda() for a in args]
+    t[2] = t[2].to(dtype)
+    before = launch_counts["ivf_flat_scan"]
+    got = flat_scan.ivf_flat_scan(*t)
+    torch.cuda.synchronize()
+    assert launch_counts["ivf_flat_scan"] == before + 1
+    _assert_close(got.cpu().numpy(), flat_scan.ivf_flat_scan_reference(*t).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,esize", [(128, 4), (128, 2), (37, 4), (1536, 4)])
+def test_cuda_pair_geometry_matches_the_library(D, esize):
+    import ctypes
+
+    from lancedb_tpu_torch.ops.cuda_build import load, max_smem_bytes
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flat scan kernels have no CPU mode")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    geo = flat_scan.pair_geometry(128, 27, 1224, D, esize, sms)
+    fn = load("ivf_flat_scan").ivf_flat_scan_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    assert fn(geo["tile_rows"], geo["pitch"]) == geo["smem"] <= max_smem_bytes()
