@@ -33,9 +33,11 @@ Phases:
      host's launch is hidden) and for B1-B4 ``cold_ms`` (L2 flushed by
      a 128 MB write before each call).
      Then it drives the probes of the ADC inner loop (S1, both designs,
-     lancedb_tpu_torch.probes.ab_adc8) and of the shared-memory gather
-     (S2, its eight shapes, probes.ab_gather_min), each with the launch
-     counts set to 0 just before it and read just after.
+     lancedb_tpu_torch.probes.ab_adc8: timed back to back, on the card
+     alone and cold, select held to gather bit for bit, then both at the
+     probe's edge shapes) and of the shared-memory gather (S2, its eight
+     shapes, probes.ab_gather_min), each with the launch counts set to 0
+     just before it and read just after.
   3. main path, at SIFT1M scale: connect() on the default device →
      create_table with 1,000,000 rows of 128-d clustered vectors (seed 0)
      plus id and category = id % 10, then three paths, each with the
@@ -1319,20 +1321,36 @@ def main_path(card: str) -> tuple[dict, list[dict]]:
 
 
 def probe_kernel_records() -> list[dict]:
-    """Drive the probes of S1 (ab_adc8: both designs at both codings) and
-    S2 (ab_gather_min: eight shapes), each with the launch counts set to
-    0 just before it and read just after; one record per S1 design and
-    coding and per S2 shape. The probes hold each kernel to its plain
-    version and time both; the bound is the function's: S1 reads each
+    """Drive the probes of S1 (ab_adc8: both designs at both codings, then
+    at its edge shapes) and S2 (ab_gather_min: eight shapes), each with
+    the launch counts set to 0 just before it and read just after; one
+    record per S1 design and coding and per S2 shape. The probes hold each
+    kernel to its plain version and time both, and S1's select to its
+    gather bit for bit (raising otherwise); S1 is timed back to back, on
+    the card alone and cold. The bound is the function's: S1 reads each
     partition's codes once (cell c reads partition c mod P), the LUTs once
-    and writes its (cells, pmax) output, with S adds per output; S2 reads
-    its table and index once and writes its output."""
+    and writes its (cells, pmax) output, with S adds per output; its
+    ``lookup_ms`` is the S lookups of every output at one a lane a clock
+    on each SM, beside the bound, and ``device_ms_by_partitions`` its time
+    with P varied (ab_adc8.partition_sweep). S2 reads its table and index
+    once and writes its output."""
+    import torch
+
     from lancedb_tpu_torch.ops.cuda_build import launch_counts, reset_launch_counts
     from lancedb_tpu_torch.probes import ab_adc8, ab_gather_min
 
     reset_launch_counts()
     s1 = ab_adc8.run()
     s1_counts = dict(launch_counts)
+    reset_launch_counts()
+    n_edges = ab_adc8.check_edges(torch.device("cuda"))
+    for counter in ("adc_sum_select", "adc_sum_gather"):
+        if launch_counts[counter] != n_edges:
+            raise AssertionError(f"{counter}: {launch_counts[counter]} launches over "
+                                 f"{n_edges} edge cases")
+    by_p: dict = {}  # (design, bits) -> {P: device ms}; not counted: not the probe's inputs
+    for r in ab_adc8.partition_sweep():
+        by_p.setdefault((r["design"], r["bits"]), {})[r["P"]] = r["device_ms"]
     reset_launch_counts()
     s2 = ab_gather_min.run()
     s2_counts = dict(launch_counts)
@@ -1349,6 +1367,9 @@ def probe_kernel_records() -> list[dict]:
             counter, f"adc_sum {r['design']} ({r['bits']}-bit, S={s_}, K={k})", r["max_abs_err"],
             r["ms_per_scan"], r["plain_ms"], nbytes / HBM_BYTES_PER_S * 1e3,
             ops / F32_OPS_PER_S * 1e3, launches=s1_counts[counter], cell37_err=r["cell37_err"],
+            device_ms=r["device_ms"], cold_ms=r["cold_ms"], lookup_ms=r["lookup_ms"],
+            geometry=r["geometry"], select_equals_gather=True, edge_cases=n_edges,
+            device_ms_by_partitions=by_p[(r["design"], r["bits"])],
         ))
     for r in s2:
         n = r["shape"][0] * r["shape"][1]

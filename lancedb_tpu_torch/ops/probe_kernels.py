@@ -15,9 +15,16 @@ from __future__ import annotations
 import torch
 
 from .cuda_build import launch, launch_counts, max_smem_bytes
-from .util import check_tensor
+from .util import cdiv, check_tensor
 
 ADC_SUM_DESIGNS = ("select", "gather")
+# S1's launch geometry, as csrc/adc_sum_ab.cu computes it: warps a block,
+# slots a warp's unit (32 lanes x 4), blocks an SM at most, and the shared
+# memory the card keeps for each block
+ADC_SUM_WARPS = 8
+ADC_SUM_UNIT_SLOTS = 128
+ADC_SUM_BLOCKS_PER_SM = 4
+SMEM_RESERVED = 1024
 
 
 def adc_sum_reference(dlut: torch.Tensor, codes: torch.Tensor, ncells: int,
@@ -36,11 +43,44 @@ def adc_sum_reference(dlut: torch.Tensor, codes: torch.Tensor, ncells: int,
     return out
 
 
+def adc_sum_geometry(q: int, s: int, k: int, ncells: int, pmax: int, smem_limit: int,
+                     sms: int) -> dict:
+    """Launch geometry of S1's kernel (``csrc/adc_sum_ab.cu``, which
+    computes the same in C) on a card of ``sms`` SMs whose blocks may use
+    ``smem_limit`` bytes of shared memory (ncells, pmax ≥ 1). A unit is a
+    warp's work, one cell's codes over ADC_SUM_UNIT_SLOTS slots:
+
+      staged:  whether each warp's two code stages (S x 128 bytes each)
+               fit beside the S x K f32 LUT; else each lane reads its codes
+               from device memory;
+      smem:    the block's dynamic shared memory, the stages and the LUT;
+      units:   units of one query a block sums (cell c uses query c mod q's
+               LUT, which the block stages once), so that the grid is one
+               wave: ADC_SUM_BLOCKS_PER_SM blocks an SM, or as many as the
+               SM's shared memory holds (the limit and one SMEM_RESERVED
+               more, and one a block), over the queries that own a cell;
+      blocks:  the grid."""
+    lut = s * k * 4
+    stages = 2 * ADC_SUM_WARPS * s * ADC_SUM_UNIT_SLOTS
+    if stages + lut > smem_limit:
+        stages = 0
+    smem = stages + lut
+    resident = max(1, min(ADC_SUM_BLOCKS_PER_SM,
+                          (smem_limit + SMEM_RESERVED) // (smem + SMEM_RESERVED)))
+    queries = min(q, ncells)
+    per_query = cdiv(ncells, q) * cdiv(pmax, ADC_SUM_UNIT_SLOTS)  # units of query 0
+    units = cdiv(per_query, max(1, min(per_query, resident * sms // queries)))
+    return {"units": units, "blocks": queries * cdiv(per_query, units), "staged": stages > 0,
+            "smem": smem}
+
+
 def adc_sum(dlut: torch.Tensor, codes: torch.Tensor, ncells: int,
             design: str = "gather") -> torch.Tensor:
-    """S1's function → (ncells, pmax) f32, by the compare-select sweep
-    (``design="select"``) or the LUT gather (``"gather"``): one launch on
-    the card, the plain version on the CPU."""
+    """S1's function → (ncells, pmax) f32, by a select with no lookup at a
+    data-dependent address (``design="select"``: warp shuffles of the LUT
+    row held in registers) or the LUT gather (``"gather"``): one launch on
+    the card, the plain version on the CPU. Both designs give the same
+    bits. Every code must be below K; the kernel does not check it."""
     if design not in ADC_SUM_DESIGNS:
         raise ValueError(f"design {design!r} must be one of {ADC_SUM_DESIGNS}")
     dev = codes.device

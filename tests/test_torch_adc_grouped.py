@@ -367,16 +367,50 @@ def test_cuda_grouped_geometry_matches_the_library(S, K, qpc, pmax):
 
 @pytest.mark.cuda
 def test_cuda_probe_kernels_match_plain_versions():
+    """S1 at both codings and at ab_adc8.edge_cases (K 1 / 16 / 48 / 100 /
+    256, S 1 / 16 / 32, pmax 1 / 255 / 1280 / 1283 / 1284 / 1288, ncells
+    not a multiple of Q, P above and below ncells, codes at an odd
+    address, no room for code stages): each design launched, held to the
+    plain version, select equal to gather bit for bit; S2 at its shapes."""
     _cuda_or_skip()
     rng = np.random.default_rng(5)
     for s, k in ((16, 256), (32, 16)):
         dlut, codes = (torch.from_numpy(a).cuda()
                        for a in ab_adc8.make_inputs(rng, s, k, q=16, p=50, pmax=1280))
         want = probe_kernels.adc_sum_reference(dlut, codes, 100)
+        got = {}
         for design in probe_kernels.ADC_SUM_DESIGNS:
-            _assert_adc_close(probe_kernels.adc_sum(dlut, codes, 100, design).cpu().numpy(),
-                              want.cpu().numpy())
+            before = probe_kernels.launch_counts[f"adc_sum_{design}"]
+            got[design] = probe_kernels.adc_sum(dlut, codes, 100, design)
+            assert probe_kernels.launch_counts[f"adc_sum_{design}"] == before + 1
+            _assert_adc_close(got[design].cpu().numpy(), want.cpu().numpy())
+        assert torch.equal(got["select"], got["gather"])
+    before = dict(probe_kernels.launch_counts)
+    n = ab_adc8.check_edges(torch.device("cuda"))
+    for design in probe_kernels.ADC_SUM_DESIGNS:
+        assert probe_kernels.launch_counts[f"adc_sum_{design}"] == before[f"adc_sum_{design}"] + n
     for (s, w), axis in ab_gather_min.SHAPES:
         x, idx = (torch.from_numpy(a).cuda() for a in ab_gather_min.make_inputs(s, w, axis))
         assert torch.equal(probe_kernels.smem_gather(x, idx, axis),
                            probe_kernels.smem_gather_reference(x, idx, axis))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,S,K,ncells,pmax", [(128, 16, 256, 2560, 1280),
+                                               (128, 32, 16, 2560, 1280), (5, 16, 48, 23, 1283),
+                                               (2, 32, 256, 2001, 1283), (3, 227, 256, 10, 255)])
+def test_cuda_adc_sum_geometry_matches_the_library(q, S, K, ncells, pmax):
+    """S1's launch geometry in the wrapper is the kernel's, on this card."""
+    import ctypes
+
+    from lancedb_tpu_torch.ops.cuda_build import load, max_smem_bytes
+
+    _cuda_or_skip()
+    limit = max_smem_bytes()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fn = load("adc_sum_ab").adc_sum_ab_geometry
+    fn.argtypes, fn.restype = [ctypes.c_int] * 7 + [ctypes.c_void_p], None
+    got = (ctypes.c_int * 4)()
+    fn(q, S, K, ncells, pmax, limit, sms, got)
+    geo = probe_kernels.adc_sum_geometry(q, S, K, ncells, pmax, limit, sms)
+    assert list(got) == [geo["units"], geo["blocks"], int(geo["staged"]), geo["smem"]]
