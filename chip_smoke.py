@@ -8,7 +8,7 @@
                                           # vector_family: path g; --phase
                                           # lifecycle: path h; --phase mesh:
                                           # path i; --phase table_surface:
-                                          # path j)
+                                          # path j; --phase sql: path k)
     python3 chip_smoke.py --out smoke.json # also write the full summary as JSON
 
 Phases:
@@ -36,8 +36,9 @@ Phases:
      lancedb_tpu_torch.probes.ab_adc8: timed back to back, on the card
      alone and cold, select held to gather bit for bit, then both at the
      probe's edge shapes) and of the shared-memory gather (S2, its eight
-     shapes, probes.ab_gather_min), each with the launch counts set to 0
-     just before it and read just after.
+     shapes timed like S1 beside take_along_dim and an empty launch, then
+     its edge shapes bit for bit, probes.ab_gather_min), each with the
+     launch counts set to 0 just before it and read just after.
   3. main path, at SIFT1M scale: connect() on the default device →
      create_table with 1,000,000 rows of 128-d clustered vectors (seed 0)
      plus id and category = id % 10, then three paths, each with the
@@ -186,6 +187,19 @@ Phases:
      second table of 10,000 captions with 1-128 KiB blob payloads: a flat
      text search of 32 captions, then fetch_blobs, fetch_blob_files (read
      and seek) and fetch_blob_ranges of the hits equal to the payloads.
+  10. path k, SQL (--phase sql; also part of the whole run, after path f):
+     path f's corpus (make_corpus(default_rng(1042)), 1,000,000 docs) as
+     fts_bench with category = id % 10 and n = len(text), its FTS index
+     with positions, and a table of 1,000 rows keyed by category; through
+     db.sql, each timed on the host (median of 3) and held to sqlite3 over
+     the same scalar columns: a GROUP BY with count / avg / min / max,
+     WHERE category = 3 before and after a BITMAP index on category (the
+     same rows), ORDER BY n DESC, id LIMIT 20, and a join with GROUP BY at
+     the default budget and at a 4 MiB budget that sends it through the
+     spilling join and GROUP BY (the same rows); fts(fts_bench, q, 10) for
+     the first 10 queries of each of path f's mixes, ids and scores equal
+     to search(q, query_type="fts").limit(10); EXPLAIN ANALYZE's scan
+     reporting the 1,000,000 rows. SQL runs on the host: no kernel.
 
 Prints, on lines before the last, the card's name and power limit, a
 ``kernels:`` line and one JSON object ``{"kernels": [...]}``; the last
@@ -1333,7 +1347,10 @@ def probe_kernel_records() -> list[dict]:
     ``lookup_ms`` is the S lookups of every output at one a lane a clock
     on each SM, beside the bound, and ``device_ms_by_partitions`` its time
     with P varied (ab_adc8.partition_sweep). S2 reads its table and index
-    once and writes its output."""
+    once and writes its output; it is timed like S1, beside
+    take_along_dim and an empty kernel launched the same way (the floor of
+    a launch), then held to take_along_dim bit for bit at its edge shapes
+    (ab_gather_min.check_edges), one launch each."""
     import torch
 
     from lancedb_tpu_torch.ops.cuda_build import launch_counts, reset_launch_counts
@@ -1354,6 +1371,11 @@ def probe_kernel_records() -> list[dict]:
     reset_launch_counts()
     s2 = ab_gather_min.run()
     s2_counts = dict(launch_counts)
+    reset_launch_counts()
+    n_s2_edges = ab_gather_min.check_edges(torch.device("cuda"))
+    if launch_counts["smem_gather"] != n_s2_edges:
+        raise AssertionError(f"smem_gather: {launch_counts['smem_gather']} launches over "
+                             f"{n_s2_edges} edge cases")
     recs = []
     for r in s1:
         s_, k = r["S"], r["K"]
@@ -1378,6 +1400,12 @@ def probe_kernel_records() -> list[dict]:
             "smem_gather", f"smem_gather (shape {tuple(r['shape'])}, axis {r['axis']})", r["err"],
             r["ms"], r["take_along_dim_ms"], 3 * n * 4 / HBM_BYTES_PER_S * 1e3, 0.0,
             library_ms=r["take_along_dim_ms"], launches=s2_counts["smem_gather"],
+            device_ms=r["device_ms"], cold_ms=r["cold_ms"],
+            take_along_dim_device_ms=r["take_along_dim_device_ms"],
+            take_along_dim_cold_ms=r["take_along_dim_cold_ms"],
+            launch_floor_ms=r["launch_floor_ms"], launch_floor_device_ms=r["launch_floor_device_ms"],
+            launch_floor_cold_ms=r["launch_floor_cold_ms"], geometry=r["geometry"],
+            edge_cases=n_s2_edges,
         ))
     for counter, counts in (("adc_sum_select", s1_counts), ("adc_sum_gather", s1_counts),
                             ("smem_gather", s2_counts)):
@@ -1408,8 +1436,9 @@ def probes_phase(card: str) -> dict:
 
 def kernel_phases(phase: str, card: str) -> tuple[dict, list[dict]]:
     """The kernel checks, then (phase "all") paths a-c, the OPQ build and
-    path e on the 1M x 128 table, the probes and path d. Returns (the
-    summary, the kernel records of the JSON line)."""
+    path e on the 1M x 128 table, the probes, path d, path f, path k
+    (SQL), path h and path i. Returns (the summary, the kernel records of
+    the JSON line)."""
     import torch
 
     plan_line, plan_rest = synthetic_plan_checks()
@@ -1443,6 +1472,7 @@ def kernel_phases(phase: str, card: str) -> tuple[dict, list[dict]]:
         summary["probes"] = probes_phase(card)
         summary["large_d"], large_d_kernels = large_d_path(card)
         summary["fts"], fts_kernels = fts_phase(card)
+        summary["sql"], _ = sql_phase(card)  # host SQL: no kernel
         summary["lifecycle"], lifecycle_kernels = lifecycle_phase(card)
         summary["mesh"], mesh_kernels = mesh_phase(card)
         counts: dict = {}  # launches on the main path, per kernel
@@ -3400,13 +3430,153 @@ def table_surface_phase(card: str) -> tuple[dict, list[dict]]:
     return results, [krec]
 
 
+# ---------------------------------------------------------------- path k
+
+SQL_DIMS = 1_000  # rows of the table the corpus joins against, keyed by category
+SQL_SPILL_BUDGET = 4 << 20  # bytes: below the joined scan's, so the join spills
+
+
+def sql_rows(table) -> list[tuple]:
+    return list(zip(*(table.column(i).to_pylist() for i in range(table.num_columns))))
+
+
+def same_rows(label: str, got: list[tuple], want: list[tuple]) -> None:
+    """Row for row; floats to a relative 1e-9, the rest exactly: AVG and
+    SUM of doubles over up to 1M rows, which sqlite3 adds in another order
+    (n x 2^-53 is 1.1e-10 at n = 1M)."""
+    def same(a, b) -> bool:
+        if isinstance(a, float) or isinstance(b, float):
+            return a is not None and b is not None and abs(a - b) <= 1e-9 * max(1.0, abs(b))
+        return a == b
+
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} rows, sqlite3 {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if len(g) != len(w) or not all(same(a, b) for a, b in zip(g, w)):
+            raise AssertionError(f"{label}: row {i} {g} != sqlite3 {w}")
+
+
+def sql_path(db, card: str, n_docs: int = FTS_DOCS) -> dict:
+    """SQL over path f's corpus (ROADMAP A12b): make_corpus(default_rng(1042))
+    as fts_bench with category = id % 10 and n = len(text), its FTS index
+    (with positions) and then a BITMAP index on category, and a table of
+    SQL_DIMS rows keyed by category; every statement held to sqlite3 over
+    the same scalar columns, fts() to the query builder, EXPLAIN ANALYZE's
+    scan to n_docs rows; each statement timed on the host, median of 3."""
+    import sqlite3
+
+    import pyarrow as pa
+
+    from lancedb_tpu_torch.sql_spill import set_sql_memory_budget
+
+    rec: dict = {"docs": n_docs, "card": card}
+    t0 = time.perf_counter()
+    docs = make_corpus(np.random.default_rng(1042), n_docs)
+    ids = np.arange(n_docs, dtype=np.int64)
+    cats = ids % 10
+    lens = np.fromiter(map(len, docs), dtype=np.int64, count=n_docs)
+    tbl = db.create_table("fts_bench", pa.table({"id": ids, "text": docs, "category": cats,
+                                                 "n": lens}))
+    del docs
+    dims = np.arange(SQL_DIMS, dtype=np.int64)
+    weights = np.random.default_rng(7).random(SQL_DIMS)
+    labels = [f"label{c % 7}" for c in dims]
+    db.create_table("dims", pa.table({"category": dims, "label": labels, "weight": weights}))
+    con = sqlite3.connect(":memory:")
+    con.execute("CREATE TABLE fts_bench (id INTEGER, category INTEGER, n INTEGER)")
+    con.executemany("INSERT INTO fts_bench VALUES (?, ?, ?)",
+                    zip(ids.tolist(), cats.tolist(), lens.tolist()))
+    con.execute("CREATE TABLE dims (category INTEGER, label TEXT, weight REAL)")
+    con.executemany("INSERT INTO dims VALUES (?, ?, ?)",
+                    zip(dims.tolist(), labels, weights.tolist()))
+    rec["data_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tbl.create_fts_index("text", with_position=True)
+    rec["fts_build_s"] = time.perf_counter() - t0
+
+    def run(label: str, sql: str, want_sql: str | None = None) -> list[tuple]:
+        """The statement through db.sql (median host seconds of 3), held
+        to sqlite3's rows for want_sql (default: the same text)."""
+        out, secs = timed(lambda: db.sql(sql), reps=3)
+        got = sql_rows(out)
+        want = con.execute(want_sql or sql).fetchall()
+        same_rows(label, got, want)
+        rec.setdefault("queries", {})[label] = {"sql": sql, "rows": len(got), "host_ms": secs * 1e3}
+        print(f"[sql] {label}: {len(got)} rows, {secs * 1e3:.3f} ms ({card})", flush=True)
+        return got
+
+    run("group_by", "SELECT category, COUNT(*) AS c, AVG(n) AS a, MIN(n) AS lo, MAX(n) AS hi "
+        "FROM fts_bench GROUP BY category ORDER BY category")
+    where = "SELECT id, n FROM fts_bench WHERE category = 3 ORDER BY id"
+    scanned = run("where_scan", where)
+    tbl.create_scalar_index("category", index_type="BITMAP")
+    if run("where_bitmap", where) != scanned:
+        raise AssertionError("WHERE category = 3 differs with the BITMAP index")
+    run("order_limit", "SELECT id, n FROM fts_bench ORDER BY n DESC, id LIMIT 20")
+    join = ("SELECT d.label, COUNT(*) AS c, SUM(f.n) AS chars, AVG(d.weight) AS w "
+            "FROM fts_bench f JOIN dims d ON f.category = d.category "
+            "GROUP BY d.label ORDER BY d.label")
+    joined = run("join_group_by", join)
+    set_sql_memory_budget(SQL_SPILL_BUDGET)
+    try:
+        spilled = run("join_group_by_spilled", join)
+    finally:
+        set_sql_memory_budget(None)
+    rec["spill_budget_bytes"] = SQL_SPILL_BUDGET
+    same_rows("spilled join against the unspilled one", spilled, joined)
+
+    # fts(): the first 10 queries of each of the bench's mixes, equal to the
+    # query builder's FTS top-10 (ids and scores) exactly
+    checked = 0
+    t_sql = t_qb = 0.0
+    for mix, queries in fts_mixes().items():
+        for q in queries[:10]:
+            t = time.perf_counter()
+            got = db.sql(f"SELECT id, _score FROM fts(fts_bench, '{q}', 10)")
+            t_sql += time.perf_counter() - t
+            t = time.perf_counter()
+            want = tbl.search(q, query_type="fts").limit(10).to_arrow()
+            t_qb += time.perf_counter() - t
+            if (got.column("id").to_pylist() != want.column("id").to_pylist()
+                    or got.column("_score").to_pylist() != want.column("_score").to_pylist()):
+                raise AssertionError(f"fts({q!r}) differs from the query builder's FTS")
+            checked += 1
+    rec["fts"] = {"queries_checked": checked, "sql_ms_per_query": t_sql / checked * 1e3,
+                  "query_builder_ms_per_query": t_qb / checked * 1e3}
+    print(f"[sql] fts(): {json.dumps(rec['fts'])} ({card})", flush=True)
+
+    plan = db.sql("EXPLAIN ANALYZE SELECT category, COUNT(*) AS c FROM fts_bench "
+                  "GROUP BY category").column("plan")[0].as_py()
+    scan = next(line for line in plan.splitlines() if "ScanExec: table=fts_bench" in line)
+    if f"output_rows={n_docs}," not in scan:
+        raise AssertionError(f"EXPLAIN ANALYZE's scan does not report {n_docs} rows: {scan}")
+    rec["explain_analyze_scan"] = scan.strip()
+    con.close()
+    print(f"[sql] {json.dumps({k: v for k, v in rec.items() if k != 'queries'})}", flush=True)
+    return rec
+
+
+def sql_phase(card: str) -> tuple[dict, list[dict]]:
+    """Path k on a database of its own, on the card's connection. SQL runs
+    on the host and launches no kernel: no kernel record."""
+    import lancedb_tpu_torch
+    from lancedb_tpu_torch.native import native_available
+
+    if not native_available():
+        raise AssertionError("the native FTS library did not build")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sql_") as tmp:
+        results = sql_path(lancedb_tpu_torch.connect(tmp), card)
+    print(f"card: {card}", flush=True)
+    return results, []
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase",
                     choices=("all", "kernels", "large_d", "hnsw", "fts", "vector_family",
-                             "lifecycle", "mesh", "table_surface"),
+                             "lifecycle", "mesh", "table_surface", "sql"),
                     default="all", help="kernels: the kernel checks only; large_d, hnsw, fts, "
-                    "vector_family, lifecycle, mesh, table_surface: that path only")
+                    "vector_family, lifecycle, mesh, table_surface, sql: that path only")
     ap.add_argument("--out", help="also write the full summary as JSON to this file")
     a = ap.parse_args()
     if not (REPO / "lancedb_tpu_torch" / "csrc").is_dir():
@@ -3438,7 +3608,7 @@ def main() -> int:
     summary: dict = {}
     kernels: list[dict] = []
     if a.phase in ("large_d", "hnsw", "fts", "vector_family", "lifecycle", "mesh",
-                   "table_surface"):
+                   "table_surface", "sql"):
         if a.phase == "large_d":
             summary["large_d"], kernels = large_d_path(card)
         elif a.phase == "mesh":
@@ -3449,6 +3619,8 @@ def main() -> int:
             summary["table_surface"], kernels = table_surface_phase(card)
         elif a.phase == "fts":
             summary["fts"], kernels = fts_phase(card)
+        elif a.phase == "sql":
+            summary["sql"], kernels = sql_phase(card)
         elif a.phase == "vector_family":
             summary["vector_family"], kernels = vector_family_only(card)
         else:

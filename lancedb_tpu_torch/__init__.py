@@ -23,6 +23,8 @@ Same surface and on-disk format as ``lancedb_tpu``:
     tbl.checkout(v); tbl.checkout_latest(); tbl.tags.create("t", v); tbl.restore(v)
     tbl.query().where("category = 42").order_by("id").limit(5).to_arrow()
     tbl.search(q).analyze_plan()
+    db.sql("SELECT category, count(*) FROM items WHERE category < 5 GROUP BY category")
+    db.sql("SELECT id, _score FROM fts(docs, 'quick fox', 10)")  # EXPLAIN [ANALYZE] too
     class Doc(LanceModel):                     # embedding functions (embeddings/)
         text: str = fn.SourceField()           # fn = get_registry().get("hash").create()
         vector: Vector(fn.ndims()) = fn.VectorField()
@@ -87,11 +89,14 @@ from .query_fts import (
     PhraseQuery,
 )
 from .session import Session
+from .sql_spill import set_sql_memory_budget, sql_memory_budget
 from .table import MergeInsertBuilder, Table
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "set_sql_memory_budget",
+    "sql_memory_budget",
     "blob_field",
     "contextualize",
     "connect",

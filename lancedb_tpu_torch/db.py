@@ -10,8 +10,9 @@ when the interval is positive), the session's searcher cache and the
 registry of background jobs. ``create_table`` takes a pyarrow schema or a
 pydantic ``LanceModel``, binds embedding functions into the schema's
 metadata and stores blob columns out of line. ``connect_async`` (in
-``aio.py``) wraps a connection. SQL waits for ROADMAP A12b; namespaces and
-remote connections for A12e.
+``aio.py``) wraps a connection. ``sql`` runs a SELECT over the tables
+(``sql.py``, on the host). Namespaces and remote connections wait for
+ROADMAP A12e.
 """
 
 from __future__ import annotations
@@ -36,14 +37,11 @@ TABLE_SUFFIX = ".lance"
 
 
 class LanceDBConnection(NotPortedSurface):
-    _NOT_PORTED = {
-        "sql": "A12b",
-        **dict.fromkeys(
-            ("namespace_client", "create_namespace", "drop_namespace", "list_namespaces",
-             "namespace_exists", "describe_namespace"),
-            "A12e",
-        ),
-    }
+    _NOT_PORTED = dict.fromkeys(
+        ("namespace_client", "create_namespace", "drop_namespace", "list_namespaces",
+         "namespace_exists", "describe_namespace"),
+        "A12e",
+    )
 
     def __init__(self, uri: str, *, device=None, read_consistency_interval: float | None = None,
                  storage_options: dict | None = None, session: Session | None = None,
@@ -233,6 +231,28 @@ class LanceDBConnection(NotPortedSurface):
             src.checkout(version)
         data = src.to_arrow()
         return self.create_table(target, data if data.num_rows else None, schema=src.schema)
+
+    # -------------------------------------------------------------- SQL
+
+    def sql(self, query: str) -> pa.Table:
+        """Run a SQL SELECT over this database's tables (reference db.py:48):
+        projection, aggregates, GROUP BY / HAVING / ORDER BY / LIMIT,
+        sub-selects, joins and the ``fts(table, 'query' [, k])`` table
+        function, on the host. A WHERE filters in the table's scan; under
+        ``fts()`` it takes the scalar-index prefilter. ``EXPLAIN SELECT ...``
+        returns the plan without running it and ``EXPLAIN ANALYZE SELECT
+        ...`` runs it and annotates each operator with its rows and time,
+        both as a (plan_type, plan) table."""
+        from .sql import analyze_select, execute_select, explain_select
+
+        stripped = query.lstrip()
+        if stripped[:7].upper() == "EXPLAIN":
+            rest = stripped[7:].lstrip()
+            if rest[:7].upper() == "ANALYZE":
+                plan, _ = analyze_select(rest[7:].lstrip(), self.open_table)
+                return pa.table({"plan_type": ["Plan with Metrics"], "plan": [plan]})
+            return pa.table({"plan_type": ["physical_plan"], "plan": [explain_select(rest)]})
+        return execute_select(query, self.open_table)
 
     # ------------------------------------------------------------- jobs
 

@@ -8,6 +8,8 @@ probes in ``lancedb_tpu_torch.probes`` and ``chip_smoke.py`` do.
 ``csrc/smem_gather.cu`` for tensors on the card; for tensors on the CPU
 they use their plain torch versions, ``adc_sum_reference`` and
 ``smem_gather_reference``. A CUDA input that a kernel refuses raises.
+``launch_floor`` launches an empty kernel the same way, which the probes
+time as the floor of any launch.
 """
 
 from __future__ import annotations
@@ -107,16 +109,58 @@ def adc_sum(dlut: torch.Tensor, codes: torch.Tensor, ncells: int,
     return out
 
 
+# S2's launch geometry, as csrc/smem_gather.cu computes it: warps a block
+# at most on axis 1 (4 outputs a thread), and on axis 0 the columns of a
+# strip (one a lane), the warps of a block and the output rows each writes
+SMEM_GATHER_ROW_WARPS = 8
+SMEM_GATHER_STRIP_COLS = 32
+SMEM_GATHER_STRIP_WARPS = 8
+SMEM_GATHER_WARP_ROWS = 8
+GRID_Y_MAX = 65535
+
+
 def smem_gather_reference(x: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
     """Plain torch version of S2's function: ``take_along_dim``."""
     return torch.take_along_dim(x, idx.long(), dim=axis)
 
 
+def smem_gather_geometry(s: int, w: int, axis: int, smem_limit: int) -> dict:
+    """Launch geometry of S2's kernel (``csrc/smem_gather.cu``, which
+    computes the same in C) for an (s, w) table on a card whose blocks may
+    use ``smem_limit`` bytes of shared memory (s, w >= 1):
+
+      axis 1: block (i, c) stages row i and writes its columns
+              [c * tile, (c + 1) * tile), 4 a thread: ``threads`` is 32 a
+              warp for ceil(w / 4) threads, at most SMEM_GATHER_ROW_WARPS
+              warps; ``grid`` (s, column tiles);
+      axis 0: block (r, c) stages strip c (columns [32c, 32c + 32)) over
+              all s rows and writes its output rows [r * tile, (r + 1) *
+              tile), tile = SMEM_GATHER_STRIP_WARPS x SMEM_GATHER_WARP_ROWS;
+              ``grid`` (row chunks, strips);
+      tiles:  column tiles or strips; grid[1] is at most GRID_Y_MAX and a
+              block walks tiles c, c + grid[1], ...;
+      smem:   the staged row (4w bytes) or strip (128s bytes), or 0 where it
+              does not fit ``smem_limit`` (``staged`` False: the block reads
+              the table from device memory)."""
+    if axis == 1:
+        threads = 32 * min(SMEM_GATHER_ROW_WARPS, cdiv(cdiv(w, 4), 32))
+        tile = 4 * threads
+        tiles, gx, need = cdiv(w, tile), s, 4 * w
+    else:
+        threads = 32 * SMEM_GATHER_STRIP_WARPS
+        tile = SMEM_GATHER_STRIP_WARPS * SMEM_GATHER_WARP_ROWS
+        tiles, gx, need = cdiv(w, SMEM_GATHER_STRIP_COLS), cdiv(s, tile), 4 * SMEM_GATHER_STRIP_COLS * s
+    staged = need <= smem_limit
+    return {"threads": threads, "tile": tile, "grid": (gx, min(tiles, GRID_Y_MAX)), "tiles": tiles,
+            "smem": need if staged else 0, "staged": staged}
+
+
 def smem_gather(x: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
     """take_along_axis(x, idx, axis) for an (s, w) f32 table and int32
-    index, with the table staged in shared memory: one launch on the
-    card, the plain version on the CPU. Every index must lie inside the
-    table; the kernel does not check it."""
+    index, each block staging the row (axis 1) or 32-column strip (axis 0)
+    its outputs read in shared memory: one launch on the card, the plain
+    version on the CPU. Every index must lie inside the table; the kernel
+    does not check it."""
     if axis not in (0, 1):
         raise ValueError(f"axis {axis} must be 0 or 1")
     dev = x.device
@@ -127,13 +171,16 @@ def smem_gather(x: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
     s, w = x.shape
     check_tensor(x, "x", torch.float32, (s, w), dev)
     check_tensor(idx, "idx", torch.int32, (s, w), dev)
-    smem, limit = s * w * 4, max_smem_bytes()
-    if smem > limit:
-        raise ValueError(f"an ({s}, {w}) f32 table needs {smem} bytes of shared memory; the "
-                         f"card allows {limit}")
     out = torch.empty((s, w), dtype=torch.float32, device=dev)
     if s * w == 0:
         return out
     launch("smem_gather", [x.data_ptr(), idx.data_ptr(), out.data_ptr()], [s, w, axis], dev)
     launch_counts["smem_gather"] += 1
     return out
+
+
+def launch_floor(device: torch.device) -> None:
+    """Launch ``csrc/launch_floor.cu``'s empty kernel as every kernel here
+    is launched: the floor of a launch's time on the card. Not a port of a
+    TPU kernel, and not counted."""
+    launch("launch_floor", [], [], device)

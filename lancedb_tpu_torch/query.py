@@ -390,12 +390,14 @@ _PLAN_METRICS: contextvars.ContextVar = contextvars.ContextVar("plan_metrics", d
 @dataclass
 class _PlanSink:
     metrics: dict
-    device: torch.device  # the table's device, synchronized around each operator
+    # the table's device, synchronized around each operator; None for a
+    # run on the host alone (SQL)
+    device: torch.device | None = None
 
 
-def _device_clock(device: torch.device) -> float:
+def _device_clock(device: torch.device | None) -> float:
     """The host clock, read once the device's queued work has finished."""
-    if device.type == "cuda":
+    if device is not None and device.type == "cuda":
         torch.cuda.synchronize(device)
     return time.perf_counter()
 

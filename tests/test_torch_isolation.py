@@ -131,6 +131,16 @@ b = lancedb_tpu_torch.connect(sys.argv[1], device="cpu").create_table(
 b.add([{"id": 0, "media": b"payload"}])
 assert b.fetch_blobs("media", [0]) == [b"payload"]
 assert context.contextualize([{"text": "a b c"}]).text_col("text").window(2).to_list()
+# SQL: a grouped scan, fts() with a WHERE, a join through the spilling path
+from lancedb_tpu_torch import sql, sql_spill
+sdb = lancedb_tpu_torch.connect(sys.argv[1], device="cpu")
+assert sdb.sql("SELECT COUNT(*) AS n FROM t").to_pydict() == {"n": [601]}
+assert sdb.sql("SELECT id FROM fts(t, 'gamma', 3) WHERE category = 9").num_rows <= 3
+sdb.create_table("k", pa.table({"id": np.arange(50), "w": np.arange(50) * 2}))
+sdb.create_table("k2", pa.table({"id": np.arange(0, 600, 3)}))
+lancedb_tpu_torch.set_sql_memory_budget(1 << 16)
+assert sdb.sql("SELECT COUNT(*) AS n FROM k JOIN k2 ON k.id = k2.id").to_pydict() == {"n": [17]}
+lancedb_tpu_torch.set_sql_memory_budget(None)
 assert not any(m == "jax" or m.startswith(("jax.", "lancedb_tpu."))
                for m, mod in sys.modules.items() if mod is not None)
 print("ok")
@@ -183,8 +193,10 @@ def test_unported_surface_names_its_roadmap_item(tmp_path):
         "id": np.arange(4), "vector": pa.FixedSizeListArray.from_arrays(pa.array(x.ravel()), 8),
     }))
     assert db.table_names() == ["t"] and db.open_table("t").count_rows() == 4
+    # what ROADMAP A12b lifted is served: SQL over the connection's tables
+    assert db.sql("SELECT 1").num_rows == 1
+    assert db.sql("SELECT COUNT(*) AS n FROM t").to_pydict() == {"n": [4]}
     for call, item in (
-        (lambda: db.sql("SELECT 1"), "A12b"),
         (lambda: db.create_namespace(["ns"]), "A12e"),
         (lambda: lancedb_tpu_torch.connect("db://remote", device="cpu"), "A12e"),
     ):
