@@ -8,7 +8,9 @@
                                           # vector_family: path g; --phase
                                           # lifecycle: path h; --phase mesh:
                                           # path i; --phase table_surface:
-                                          # path j; --phase sql: path k)
+                                          # path j; --phase sql: path k;
+                                          # --phase remote: path a's table
+                                          # and 8-bit index, then path l)
     python3 chip_smoke.py --out smoke.json # also write the full summary as JSON
 
 Phases:
@@ -54,7 +56,8 @@ Phases:
         qpc 8, top-k) serves the 256 queries in chunks of 128, with B3's
         launches counted from 0 over it; its recall is held to the raw
         bar, its top-10 compared with the per-pair (B1) route's, and B3
-        checked and timed on the searcher's inputs beside B1.
+        checked and timed on the searcher's inputs beside B1. While the
+        8-bit index is current, path l (below) serves it.
      b. create_index(IVF_FLAT, 1024 partitions) → search at nprobes 8, 20
         and 64, at 20 with the filter, and at 20 with refine_factor 10
         (the host refine); B2 and B4 checked and timed on the inputs the
@@ -200,6 +203,31 @@ Phases:
      the first 10 queries of each of path f's mixes, ids and scores equal
      to search(q, query_type="fts").limit(10); EXPLAIN ANALYZE's scan
      reporting the 1,000,000 rows. SQL runs on the host: no kernel.
+  11. path l, the query server (part of path a in the whole run, on its
+     8-bit x16 index; --phase remote builds that table and index alone,
+     then runs it): QueryServer over path a's connection (the card) on
+     127.0.0.1, batch_window_ms 2, max_batch 64, and a client through
+     connect("db://bench", host_override=url); one request of the 256
+     queries raw, refine_factor(10) and where("category < 5"), ids equal
+     to the local search issued the same way, distances within 1e-5
+     relative, host ms of each (median of 3 after one warm call); 64
+     single-vector requests (every fourth filtered) from 16 client
+     threads against this server, a second one with a 200 ms window
+     (wide enough to collect each wave of the threads' requests, so that
+     they coalesce whatever the scheduling) and a third with
+     batch_window_ms 0, B1 launches and lancedb.queries counted from 0
+     for each: 64 of each unbatched, at most 64 at 2 ms, fewer than 64
+     at 200 ms, the hits within path
+     i's 1-shard bar of the local single searches, no filtered hit with
+     category >= 5, wall ms, requests a second and the largest group; B1
+     held to its plain version at the largest coalesced group's shape (a
+     kernel record with path l's launches); SQL through the server (a
+     GROUP BY equal to db.sql, explain_plan equal to the local text,
+     analyze_plan reporting the scan's rows); connect_namespace over path
+     a's directory and a NamespaceServer reached through
+     connect_namespace_client, each opening the table on the card and
+     giving the local ids for the 256 raw queries; a child namespace
+     created, listed and dropped. No table or index is built for it.
 
 Prints, on lines before the last, the card's name and power limit, a
 ``kernels:`` line and one JSON object ``{"kernels": [...]}``; the last
@@ -1217,19 +1245,16 @@ def hnsw_path(db, x: np.ndarray, card: str) -> dict:
     return results
 
 
-def main_path(card: str) -> tuple[dict, list[dict]]:
+def sift1m_like():
+    """Path a's rows (1,000,000 x 128 make_clustered, seed 0, with id and
+    category = id % 10) and its 256 queries: (x, queries, the table)."""
     import pyarrow as pa
-    import torch
 
-    import lancedb_tpu_torch
-    from lancedb_tpu_torch.index import IvfPq
-    from lancedb_tpu_torch.ops import adc
     from lancedb_tpu_torch.probes.common import make_clustered
 
-    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must stay off for exact f32"
-    n, dim, nq, k = 1_000_000, 128, 256, 10
+    n, dim = 1_000_000, 128
     t0 = time.perf_counter()
-    x, queries = make_clustered(np.random.default_rng(0), n, dim, n_queries=nq)
+    x, queries = make_clustered(np.random.default_rng(0), n, dim, n_queries=256)
     ids = np.arange(n, dtype=np.int64)
     data = pa.table({
         "id": ids,
@@ -1237,6 +1262,20 @@ def main_path(card: str) -> tuple[dict, list[dict]]:
         "vector": pa.FixedSizeListArray.from_arrays(pa.array(x.ravel()), dim),
     })
     print(f"[main] data made in {time.perf_counter() - t0:.3f} s", flush=True)
+    return x, queries, data
+
+
+def main_path(card: str) -> tuple[dict, list[dict]]:
+    import torch
+
+    import lancedb_tpu_torch
+    from lancedb_tpu_torch.index import IvfPq
+    from lancedb_tpu_torch.ops import adc
+
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must stay off for exact f32"
+    n, dim, nq, k = 1_000_000, 128, 256, 10
+    ids = np.arange(n, dtype=np.int64)
+    x, queries, data = sift1m_like()
     x_d = torch.from_numpy(x).cuda()
     xn2_d = torch.sum(x_d * x_d, dim=1)
     mask_d = torch.from_numpy(ids % 10 < 5).cuda()
@@ -1317,6 +1356,10 @@ def main_path(card: str) -> tuple[dict, list[dict]]:
                 raise AssertionError(
                     f"{tag}: filtered refined recall {rec['filtered_refined']['recall@10']} < 0.95"
                 )
+            if nbits == 8:
+                # path l: the query server on this index (no build of its own)
+                results["remote"], krec_l = remote_path(db, tbl, searcher, queries, card)
+                kernels.append(krec_l)
             del searcher
             tbl._invalidate_caches()
             torch.cuda.empty_cache()
@@ -2623,14 +2666,15 @@ def exact_topk_chunked(x_d, q: np.ndarray, k: int, mask_d=None, chunk: int = 1 <
 
 
 def overlap_check(label: str, got_ids, got_d, want_ids, want_d) -> dict:
-    """A mesh's hits against the single-device searcher's: >= 9 of 10 ids
-    a query, mean overlap >= 0.99, sorted distances within 1e-3."""
+    """Hits against the single-device searcher's (a mesh's, or a coalesced
+    batch's), the 1-shard bar: >= 9 of 10 ids a query, mean overlap >= 0.99,
+    sorted distances within 1e-3."""
     per_q = np.array([len(set(a.tolist()) & set(b.tolist())) for a, b in zip(got_ids, want_ids)])
     worst_d = float(np.max(np.abs(np.sort(got_d, 1) - np.sort(want_d, 1))))
     out = {"min_overlap": int(per_q.min()), "mean_overlap": float(per_q.mean() / 10),
            "max_sorted_distance_diff": worst_d}
     if per_q.min() < 9 or per_q.mean() / 10 < 0.99 or worst_d > 1e-3:
-        raise AssertionError(f"{label}: the 1-shard mesh disagrees with one device: {out}")
+        raise AssertionError(f"{label}: the hits miss the 1-shard bar: {out}")
     return out
 
 
@@ -3570,13 +3614,301 @@ def sql_phase(card: str) -> tuple[dict, list[dict]]:
     return results, []
 
 
+# ---------------------------------------------------------------- path l
+
+SINGLES, CLIENT_THREADS = 64, 16  # single-vector requests, and the threads sending them
+WIDE_WINDOW_MS = 200.0  # a batching window that collects each wave of the threads' requests
+
+
+def host_timed(fn, reps: int = 3):
+    """(the last result, the median host ms of ``reps`` calls after one warm call)."""
+    fn()
+    runs = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        out = fn()
+        runs.append((out, (time.perf_counter() - t) * 1e3))
+    return runs[-1][0], float(np.median([r[1] for r in runs]))
+
+
+def queries_counted(table: str) -> float:
+    """The ``lancedb.queries`` increments of vector searches on ``table`` so far."""
+    from lancedb_tpu_torch.metrics import snapshot_metrics
+
+    return sum(c["value"] for c in snapshot_metrics()["counters"]
+               if c["name"] == "lancedb.queries" and c["labels"].get("table") == table)
+
+
+def same_hits(label: str, got, want, nq: int) -> None:
+    """Two batches' hits: the same ids for each query, distances within
+    1e-5 relative."""
+    got_ids, got_d, _ = batch_hits(got, nq)
+    want_ids, want_d, _ = batch_hits(want, nq)
+    if not np.array_equal(got_ids, want_ids):
+        bad = int(np.sum(np.any(got_ids != want_ids, axis=1)))
+        raise AssertionError(f"{label}: the ids differ from the local search in {bad} queries")
+    finite = np.isfinite(want_d)
+    if not np.allclose(got_d[finite], want_d[finite], rtol=1e-5, atol=0.0):
+        raise AssertionError(f"{label}: distances differ from the local search beyond 1e-5")
+
+
+def group_sizes(server) -> list[int]:
+    """The sizes of the groups the server's batcher runs, appended as it
+    runs them (empty for a server without a batcher)."""
+    batcher = server._httpd.RequestHandlerClass._batcher
+    sizes: list[int] = []
+    if batcher is not None:
+        submit = batcher.submit
+
+        def counted_submit(key, item, run_batch):
+            def run(items):
+                sizes.append(len(items))
+                return run_batch(items)
+            return submit(key, item, run)
+
+        batcher.submit = counted_submit
+    return sizes
+
+
+# the client process of path l's single requests: argv is the checkout,
+# the server's URL, the table and the thread count; stdin the requests as
+# JSON ([vector, where or null] each); stdout one JSON object with the
+# wall ms from the threads' start to their end and each request's hits
+SINGLES_CLIENT = r"""
+import json, sys, threading, time
+sys.path.insert(0, sys.argv[1])
+from lancedb_tpu_torch.remote import connect_remote
+url, table, n = sys.argv[2], sys.argv[3], int(sys.argv[4])
+singles = json.loads(sys.stdin.read())
+hits, errors = [None] * len(singles), []
+tables = [connect_remote(url).open_table(table) for _ in range(n)]
+barrier = threading.Barrier(n + 1)
+def work(t):
+    try:
+        barrier.wait(timeout=60)
+        for i in range(t, len(singles), n):
+            q, where = singles[i]
+            s = tables[t].search(q).nprobes(20).limit(10).select(["id", "category"])
+            out = (s.where(where) if where else s).to_arrow()
+            hits[i] = [out.column(c).to_pylist() for c in ("id", "_distance", "category")]
+    except Exception as exc:
+        errors.append(repr(exc))
+threads = [threading.Thread(target=work, args=(t,), daemon=True) for t in range(n)]
+for th in threads:
+    th.start()
+barrier.wait(timeout=60)
+t0 = time.perf_counter()
+for th in threads:
+    th.join(timeout=300)
+wall_ms = (time.perf_counter() - t0) * 1e3
+if errors or any(th.is_alive() for th in threads):
+    sys.exit(f"client errors: {errors[:3]}, threads alive: {sum(th.is_alive() for th in threads)}")
+print(json.dumps({"wall_ms": wall_ms, "hits": hits}))
+"""
+
+
+def single_requests(url: str, table: str, singles: list) -> tuple[list, float]:
+    """The single-vector requests from CLIENT_THREADS threads of a client
+    process of their own (thread t sends requests t, t + 16, ...; the
+    server's interpreter is left to the server, as a deployment's would
+    be), started together: (each request's (ids, distances, categories),
+    wall ms)."""
+    import subprocess
+
+    payload = json.dumps([[q.tolist(), where] for q, where in singles])
+    proc = subprocess.run([sys.executable, "-c", SINGLES_CLIENT, str(REPO), url, table,
+                           str(CLIENT_THREADS)], input=payload, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"path l: the client process failed: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    return out["hits"], out["wall_ms"]
+
+
+def single_hits(hits: list) -> tuple[np.ndarray, np.ndarray, list]:
+    """(ids (n, 10), distances (n, 10), each request's categories) of
+    single searches' (ids, distances, categories)."""
+    ids = np.full((len(hits), 10), -1, np.int64)
+    dist = np.full((len(hits), 10), np.inf, np.float32)
+    for i, (hid, hd, _) in enumerate(hits):
+        ids[i, : len(hid)] = hid[:10]
+        dist[i, : len(hd)] = hd[:10]
+    return ids, dist, [np.asarray(h[2]) for h in hits]
+
+
+def remote_path(db, tbl, searcher, queries: np.ndarray, card: str) -> tuple[dict, dict]:
+    """Path l: the query server over ``db`` (path a's connection, the card)
+    while ``tbl``'s IVF_PQ 8-bit x16 index is current; ``searcher`` is that
+    index's. B1's launches are counted from 0 over the path (the launches
+    that compare B1 with its plain version excepted), and per run by
+    difference. Returns (the summary, B1's record at the largest coalesced
+    group's shape, with the path's launches)."""
+    import lancedb_tpu_torch
+    from lancedb_tpu_torch.ops import adc
+    from lancedb_tpu_torch.remote import QueryServer
+
+    t_path = time.perf_counter()
+    name, nq, k = tbl.name, len(queries), 10
+    rec: dict = {"card": card}
+    adc.reset_launch_counts()
+
+    def search(t, q, rf=None, where=None):
+        s = t.search(q).nprobes(20).limit(k).select(["id", "category"])
+        if rf:
+            s = s.refine_factor(rf)
+        return (s.where(where) if where else s).to_arrow()
+
+    def counts() -> tuple[int, float]:
+        return adc.launch_counts["ivf_pq_adc_scan"], queries_counted(name)
+
+    server = QueryServer(db, batch_window_ms=2.0, max_batch=64).start()
+    wide = QueryServer(db, batch_window_ms=WIDE_WINDOW_MS, max_batch=64).start()
+    unbatched = QueryServer(db, batch_window_ms=0).start()
+    try:
+        client = lancedb_tpu_torch.connect("db://bench", host_override=server.url)
+        rt = client.open_table(name)
+
+        # 1. one request of all 256 queries, against the local search
+        for case, rf, where in (("raw", None, None), ("refined", 10, None),
+                                ("filtered", None, "category < 5")):
+            got, remote_ms = host_timed(lambda: search(rt, queries, rf, where))
+            want, local_ms = host_timed(lambda: search(tbl, queries, rf, where))
+            same_hits(f"path l {case}", got, want, nq)
+            if where and not np.all(np.asarray(got.column("category")) < 5):
+                raise AssertionError(f"path l {case}: a filtered hit has category >= 5")
+            rec[f"request_256q_{case}"] = {"remote_host_ms": remote_ms, "local_host_ms": local_ms}
+            print(f"[remote] 256 queries {case}: remote {remote_ms:.3f} ms, local "
+                  f"{local_ms:.3f} ms ({card})", flush=True)
+
+        # 2. 64 single-vector requests from 16 threads: batched in a 2 ms
+        # window, batched in a 200 ms one, then not batched. Thread t sends
+        # requests t, t + 16, ...: the 12 threads of unfiltered requests
+        # send them in 4 waves, each wave waiting for its answers, and a
+        # 200 ms window collects a wave whatever the threads' scheduling
+        singles = [(queries[i], "category < 5" if i % 4 == 3 else None) for i in range(SINGLES)]
+        local = [search(tbl, q, None, w) for q, w in singles]
+        want_ids, want_d, _ = single_hits(
+            [[o.column(c).to_pylist() for c in ("id", "_distance", "category")] for o in local])
+        largest = 0
+        for label, srv in (("batched", server), ("batched_wide", wide),
+                           ("unbatched", unbatched)):
+            sizes = group_sizes(srv)
+            b0, q0 = counts()
+            outs, wall_ms = single_requests(srv.url, name, singles)
+            b1, q1 = counts()
+            ids, dist, cats = single_hits(outs)
+            filtered = np.concatenate([c for c, (_, w) in zip(cats, singles) if w])
+            if not np.all(filtered < 5):
+                raise AssertionError(f"path l {label}: a filtered hit has category >= 5")
+            run = {"wall_ms": wall_ms, "requests_per_s": SINGLES / (wall_ms / 1e3),
+                   "b1_launches": b1 - b0, "queries_counted": q1 - q0,
+                   "largest_group": max(sizes, default=1), "groups": len(sizes),
+                   "overlap": overlap_check(f"path l {label} singles", ids, dist, want_ids,
+                                            want_d)}
+            rec[f"singles_{label}"] = run
+            print(f"[remote] {SINGLES} singles {label}: {json.dumps(run)} ({card})", flush=True)
+            if label != "unbatched":
+                largest = max(largest, run["largest_group"])
+        ub, bt, bw = (rec[f"singles_{label}"] for label in ("unbatched", "batched",
+                                                             "batched_wide"))
+        if ub["b1_launches"] != SINGLES or ub["queries_counted"] != SINGLES:
+            raise AssertionError(f"path l: {SINGLES} unbatched requests gave "
+                                 f"{ub['b1_launches']} B1 launches and "
+                                 f"{ub['queries_counted']} searches")
+        # a 2 ms window coalesces only the requests that happen to meet in it
+        if not (0 < bt["b1_launches"] <= SINGLES and 0 < bt["queries_counted"] <= SINGLES):
+            raise AssertionError(f"path l: {SINGLES} requests batched in 2 ms gave "
+                                 f"{bt['b1_launches']} B1 launches and "
+                                 f"{bt['queries_counted']} searches")
+        if not (0 < bw["b1_launches"] < SINGLES and 0 < bw["queries_counted"] < SINGLES):
+            raise AssertionError(f"path l: {SINGLES} requests batched in {WIDE_WINDOW_MS} ms "
+                                 f"gave {bw['b1_launches']} B1 launches and "
+                                 f"{bw['queries_counted']} searches: none coalesced")
+
+        # 3. B1 at the largest coalesced group's shape (not counted)
+        krec = check_adc(searcher_adc_args(searcher, queries[:largest]),
+                         f"path l coalesced group of {largest}")
+
+        # 4. SQL and the plans through the server
+        sql = f"SELECT category, count(*) AS n FROM {name} GROUP BY category ORDER BY category"
+        got_sql, rec["sql_remote_host_ms"] = host_timed(lambda: client.sql(sql), reps=1)
+        if got_sql.to_pydict() != db.sql(sql).to_pydict():
+            raise AssertionError("path l: the GROUP BY through the server differs from db.sql")
+        plan = rt.explain_plan(queries[0], k=k, nprobes=20)
+        if plan != tbl.search(queries[0]).nprobes(20).limit(k).explain_plan():
+            raise AssertionError(f"path l: the remote plan differs from the local one:\n{plan}")
+        analyzed = rt.analyze_plan(queries[0], k=k, nprobes=20)
+        scan = next((line for line in analyzed.splitlines() if "ANNSubIndexExec" in line), "")
+        if f"output_rows={k}," not in scan:
+            raise AssertionError(f"path l: analyze_plan reports no scan rows:\n{analyzed}")
+        rec["analyze_scan"] = scan.strip()
+
+        # 5. the namespace catalogues over path a's directory
+        raw = search(tbl, queries)
+        ns = lancedb_tpu_torch.connect_namespace(db.uri)
+        nt = ns.open_table([name])
+        if nt._device.type != "cuda":
+            raise AssertionError(f"path l: a namespace table runs on {nt._device}")
+        same_hits("path l connect_namespace", search(nt, queries), raw, nq)
+        with lancedb_tpu_torch.NamespaceServer(db.uri) as nsrv:
+            nc = lancedb_tpu_torch.connect_namespace_client(nsrv.address)
+            if nc.describe_table([name])["version"] != tbl.version:
+                raise AssertionError("path l: the REST catalogue describes another version")
+            rest_t = nc.open_table([name])
+            if rest_t._device.type != "cuda":
+                raise AssertionError(f"path l: a REST catalogue's table runs on {rest_t._device}")
+            same_hits("path l connect_namespace_client", search(rest_t, queries), raw, nq)
+        ns.create_namespace(["path_l"], properties={"by": "chip_smoke"})
+        if ns.list_namespaces() != ["path_l"] or ns.list_tables() != [name]:
+            raise AssertionError(f"path l: the catalogue lists {ns.list_namespaces()}, "
+                                 f"{ns.list_tables()}")
+        ns.drop_namespace(["path_l"])
+        if ns.namespace_exists(["path_l"]):
+            raise AssertionError("path l: the child namespace survived its drop")
+        del nt, rest_t
+    finally:
+        server.stop()
+        wide.stop()
+        unbatched.stop()
+    launches = adc.launch_counts["ivf_pq_adc_scan"]
+    if launches <= 0:
+        raise AssertionError("path l: B1 was not launched")
+    krec["launches"] = launches
+    rec["b1_launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_path
+    print(f"[remote] path l ({card}): {json.dumps(rec)}", flush=True)
+    return rec, krec
+
+
+def remote_phase(card: str) -> tuple[dict, list[dict]]:
+    """Path a's table and its IVF_PQ 1024 x16 8-bit index, then path l."""
+    import torch
+
+    import lancedb_tpu_torch
+    from lancedb_tpu_torch.index import IvfPq
+
+    _, queries, data = sift1m_like()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_remote_") as tmp:
+        db = lancedb_tpu_torch.connect(tmp)
+        tbl = db.create_table("sift1m_like", data)
+        del data
+        t0 = time.perf_counter()
+        tbl.create_index(config=IvfPq(num_partitions=1024, num_sub_vectors=16, num_bits=8))
+        torch.cuda.synchronize()
+        print(f"[remote] IVF_PQ 8-bit x16 built in {time.perf_counter() - t0:.3f} s", flush=True)
+        searcher = tbl._get_searcher(tbl._dataset.manifest.indices[0])
+        results, krec = remote_path(db, tbl, searcher, queries, card)
+    print(f"card: {card}", flush=True)
+    return results, [krec]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase",
                     choices=("all", "kernels", "large_d", "hnsw", "fts", "vector_family",
-                             "lifecycle", "mesh", "table_surface", "sql"),
+                             "lifecycle", "mesh", "table_surface", "sql", "remote"),
                     default="all", help="kernels: the kernel checks only; large_d, hnsw, fts, "
-                    "vector_family, lifecycle, mesh, table_surface, sql: that path only")
+                    "vector_family, lifecycle, mesh, table_surface, sql, remote: that path only")
     ap.add_argument("--out", help="also write the full summary as JSON to this file")
     a = ap.parse_args()
     if not (REPO / "lancedb_tpu_torch" / "csrc").is_dir():
@@ -3608,7 +3940,7 @@ def main() -> int:
     summary: dict = {}
     kernels: list[dict] = []
     if a.phase in ("large_d", "hnsw", "fts", "vector_family", "lifecycle", "mesh",
-                   "table_surface", "sql"):
+                   "table_surface", "sql", "remote"):
         if a.phase == "large_d":
             summary["large_d"], kernels = large_d_path(card)
         elif a.phase == "mesh":
@@ -3621,6 +3953,8 @@ def main() -> int:
             summary["fts"], kernels = fts_phase(card)
         elif a.phase == "sql":
             summary["sql"], kernels = sql_phase(card)
+        elif a.phase == "remote":
+            summary["remote"], kernels = remote_phase(card)
         elif a.phase == "vector_family":
             summary["vector_family"], kernels = vector_family_only(card)
         else:

@@ -34,6 +34,9 @@ Same surface and on-disk format as ``lancedb_tpu``:
     tbl.merge_insert("id").when_matched_update_all().when_not_matched_insert_all().use_lsm()
     tbl.query().use_lsm().to_arrow(); tbl.flush_lsm()  # after tbl.set_lsm_write_spec(...)
     db = await lancedb_tpu_torch.connect_async("/path/to/db")
+    server = remote.QueryServer(db).start()  # the card's server, over HTTP
+    lancedb_tpu_torch.connect("db://x", host_override=server.url).open_table("items")
+    ns = lancedb_tpu_torch.connect_namespace("/path/to/catalog"); ns.open_table(["prod", "items"])
     tbl.enable_sharded_serving()  # IVF_PQ over every card (lancedb_tpu_torch.parallel)
     TorchBatchFeeder(StreamingDataset(tbl), 4096)  # rows onto the cards (lancedb_tpu_torch.data)
 
@@ -43,9 +46,10 @@ full-text index from ``native/lancedb_native.cpp`` with g++.
 """
 
 from .aio import AsyncConnection, AsyncTable, connect_async
+from .arrow import vector
 from .blob import blob_field
 from .context import contextualize
-from .db import LanceDBConnection, connect, deserialize_conn
+from .db import DBConnection, LanceDBConnection, connect, deserialize_conn
 from .errors import (
     IndexNotFoundError,
     InvalidInputError,
@@ -88,6 +92,8 @@ from .query_fts import (
     Operator,
     PhraseQuery,
 )
+from .namespace import LanceNamespaceConnection, connect_namespace
+from .namespace_rest import NamespaceServer, RestNamespace, connect_namespace_client
 from .session import Session
 from .sql_spill import set_sql_memory_budget, sql_memory_budget
 from .table import MergeInsertBuilder, Table
@@ -101,7 +107,14 @@ __all__ = [
     "contextualize",
     "connect",
     "connect_async",
+    "connect_namespace",
+    "connect_namespace_client",
+    "NamespaceServer",
+    "RestNamespace",
+    "LanceNamespaceConnection",
     "deserialize_conn",
+    "vector",
+    "DBConnection",
     "LanceDBConnection",
     "AsyncConnection",
     "AsyncTable",
@@ -142,4 +155,5 @@ __all__ = [
     "IndexNotFoundError",
     "TableAlreadyExistsError",
     "TableNotFoundError",
+    "__version__",
 ]

@@ -11,8 +11,11 @@ registry of background jobs. ``create_table`` takes a pyarrow schema or a
 pydantic ``LanceModel``, binds embedding functions into the schema's
 metadata and stores blob columns out of line. ``connect_async`` (in
 ``aio.py``) wraps a connection. ``sql`` runs a SELECT over the tables
-(``sql.py``, on the host). Namespaces and remote connections wait for
-ROADMAP A12e.
+(``sql.py``, on the host). The namespace methods go to a directory
+catalogue over the same root (``namespace.py``) on the connection's
+device. ``connect("db://...", host_override=url)`` returns the remote
+client (``remote/``), which runs no device code: the server it talks to
+owns the device.
 """
 
 from __future__ import annotations
@@ -22,10 +25,9 @@ from typing import Any
 
 import pyarrow as pa
 
-from ._surface import NotPortedSurface
 from .arrow import sanitize_vectors, to_arrow_table
 from .errors import InvalidInputError, TableAlreadyExistsError, TableNotFoundError
-from .io.object_store import resolve_uri
+from .io.object_store import ObjectStore, resolve_uri
 from .jobs import JobRegistry
 from .ops.util import resolve_device
 from .session import BackgroundRefresher, Session
@@ -36,13 +38,53 @@ from .table import Table
 TABLE_SUFFIX = ".lance"
 
 
-class LanceDBConnection(NotPortedSurface):
-    _NOT_PORTED = dict.fromkeys(
-        ("namespace_client", "create_namespace", "drop_namespace", "list_namespaces",
-         "namespace_exists", "describe_namespace"),
-        "A12e",
-    )
+class DBConnection:
+    """The connection surface every database shares (reference db.py:79):
+    table CRUD, and SQL over whatever ``open_table`` opens."""
 
+    def table_names(self, page_token: str | None = None, limit: int | None = None) -> list[str]:
+        raise NotImplementedError
+
+    def create_table(self, name: str, data=None, schema=None, mode: str = "create", **kw) -> Table:
+        raise NotImplementedError
+
+    def open_table(self, name: str, **kw) -> Table:
+        raise NotImplementedError
+
+    def drop_table(self, name: str) -> None:
+        raise NotImplementedError
+
+    def rename_table(self, old: str, new: str) -> None:
+        raise NotImplementedError
+
+    def drop_all_tables(self) -> None:
+        for n in self.table_names():
+            self.drop_table(n)
+
+    drop_database = drop_all_tables
+
+    def sql(self, query: str) -> pa.Table:
+        """Run a SQL SELECT over this database's tables (reference db.py:48):
+        projection, aggregates, GROUP BY / HAVING / ORDER BY / LIMIT,
+        sub-selects, joins and the ``fts(table, 'query' [, k])`` table
+        function, on the host. A WHERE filters in the table's scan; under
+        ``fts()`` it takes the scalar-index prefilter. ``EXPLAIN SELECT ...``
+        returns the plan without running it and ``EXPLAIN ANALYZE SELECT
+        ...`` runs it and annotates each operator with its rows and time,
+        both as a (plan_type, plan) table."""
+        from .sql import analyze_select, execute_select, explain_select
+
+        stripped = query.lstrip()
+        if stripped[:7].upper() == "EXPLAIN":
+            rest = stripped[7:].lstrip()
+            if rest[:7].upper() == "ANALYZE":
+                plan, _ = analyze_select(rest[7:].lstrip(), self.open_table)
+                return pa.table({"plan_type": ["Plan with Metrics"], "plan": [plan]})
+            return pa.table({"plan_type": ["physical_plan"], "plan": [explain_select(rest)]})
+        return execute_select(query, self.open_table)
+
+
+class LanceDBConnection(DBConnection):
     def __init__(self, uri: str, *, device=None, read_consistency_interval: float | None = None,
                  storage_options: dict | None = None, session: Session | None = None,
                  storage_options_provider=None):
@@ -60,6 +102,14 @@ class LanceDBConnection(NotPortedSurface):
         self._store, self._root = resolve_uri(uri, storage_options)
         self._jobs = JobRegistry()
         self._closed = False
+
+    @classmethod
+    def _over_store(cls, uri: str, store: ObjectStore, root: str, **kw) -> "LanceDBConnection":
+        """A connection whose tables live under ``root`` of ``store``, an
+        object store that a catalogue owns and shares (a namespace's tables)."""
+        conn = cls(uri, **kw)
+        conn._store, conn._root = store, root
+        return conn
 
     def __repr__(self) -> str:
         return f"LanceDBConnection(uri={self.uri!r}, device={str(self.device)!r})"
@@ -205,12 +255,6 @@ class LanceDBConnection(NotPortedSurface):
         self.session.invalidate(root)
         self._store.delete(root)
 
-    def drop_all_tables(self) -> None:
-        for n in self.table_names():
-            self.drop_table(n)
-
-    drop_database = drop_all_tables
-
     def rename_table(self, old: str, new: str) -> None:
         old_root, new_root = self._table_root(old), self._table_root(new)
         if not self._store.exists(f"{old_root}/{VERSIONS_DIR}"):
@@ -231,28 +275,6 @@ class LanceDBConnection(NotPortedSurface):
             src.checkout(version)
         data = src.to_arrow()
         return self.create_table(target, data if data.num_rows else None, schema=src.schema)
-
-    # -------------------------------------------------------------- SQL
-
-    def sql(self, query: str) -> pa.Table:
-        """Run a SQL SELECT over this database's tables (reference db.py:48):
-        projection, aggregates, GROUP BY / HAVING / ORDER BY / LIMIT,
-        sub-selects, joins and the ``fts(table, 'query' [, k])`` table
-        function, on the host. A WHERE filters in the table's scan; under
-        ``fts()`` it takes the scalar-index prefilter. ``EXPLAIN SELECT ...``
-        returns the plan without running it and ``EXPLAIN ANALYZE SELECT
-        ...`` runs it and annotates each operator with its rows and time,
-        both as a (plan_type, plan) table."""
-        from .sql import analyze_select, execute_select, explain_select
-
-        stripped = query.lstrip()
-        if stripped[:7].upper() == "EXPLAIN":
-            rest = stripped[7:].lstrip()
-            if rest[:7].upper() == "ANALYZE":
-                plan, _ = analyze_select(rest[7:].lstrip(), self.open_table)
-                return pa.table({"plan_type": ["Plan with Metrics"], "plan": [plan]})
-            return pa.table({"plan_type": ["physical_plan"], "plan": [explain_select(rest)]})
-        return execute_select(query, self.open_table)
 
     # ------------------------------------------------------------- jobs
 
@@ -284,6 +306,36 @@ class LanceDBConnection(NotPortedSurface):
             "read_consistency_interval_seconds": self.read_consistency_interval,
         })
 
+    # ------------------------------------------------------- namespaces
+    # a directory catalogue over this connection's root (namespace.py):
+    # a namespace is a subdirectory with a .namespace.json marker
+
+    @property
+    def namespace_client(self):
+        from .namespace import LanceNamespaceConnection
+
+        if getattr(self, "_ns_client", None) is None:
+            self._ns_client = LanceNamespaceConnection(self.uri, self.storage_options,
+                                                       device=self.device)
+        return self._ns_client
+
+    def create_namespace(self, namespace_path: list[str], mode: str = "create",
+                         properties: dict | None = None) -> None:
+        return self.namespace_client.create_namespace(namespace_path, properties=properties,
+                                                      mode=mode or "create")
+
+    def drop_namespace(self, namespace_path: list[str], **kw) -> None:
+        return self.namespace_client.drop_namespace(namespace_path, **kw)
+
+    def list_namespaces(self, namespace_path: list[str] | None = None) -> list[str]:
+        return self.namespace_client.list_namespaces(namespace_path)
+
+    def namespace_exists(self, namespace_path: list[str]) -> bool:
+        return self.namespace_client.namespace_exists(namespace_path)
+
+    def describe_namespace(self, namespace_path: list[str]) -> dict:
+        return self.namespace_client.describe_namespace(namespace_path)
+
 
 def deserialize_conn(serialized: str) -> LanceDBConnection:
     """A connection from ``LanceDBConnection.serialize()``, on the device
@@ -309,18 +361,35 @@ def connect(
     storage_options: dict | None = None,
     session: Session | None = None,
     storage_options_provider=None,
-) -> LanceDBConnection:
+    api_key: str | None = None,
+    host_override: str | None = None,
+    client_config=None,
+):
     """Connect to a local or in-memory database (reference
     __init__.py:69 connect). ``device=None`` is the CUDA card; without
     one this raises rather than falling back to the CPU.
     ``read_consistency_interval``: None reads the version the table was
     opened at until this handle writes; 0 checks for a newer version
     before every read; a positive number of seconds refreshes in the
-    background."""
+    background.
+
+    ``db://name`` connects to a query server (``remote/``) at
+    ``host_override``, with ``api_key`` (default ``$LANCEDB_API_KEY``) and
+    a ``remote.ClientConfig``. The server owns the device, so a ``device``
+    beside a ``db://`` URI is refused."""
     if uri.startswith("db://"):
-        raise NotImplementedError(
-            "remote connections are not ported to lancedb_tpu_torch yet (ROADMAP A12e)"
-        )
+        import os
+
+        from .remote import connect_remote
+
+        if device is not None:
+            raise InvalidInputError(
+                "a db:// connection runs on the server's device; pass no device"
+            )
+        if host_override is None:
+            raise InvalidInputError("db:// URIs need host_override=<server url> in this build")
+        api_key = api_key or os.environ.get("LANCEDB_API_KEY")
+        return connect_remote(host_override, api_key=api_key, config=client_config)
     return LanceDBConnection(uri, device=device,
                              read_consistency_interval=read_consistency_interval,
                              storage_options=storage_options, session=session,

@@ -31,7 +31,7 @@ from .pq import (
     pq_reconstruct_device,
     pq_train,
 )
-from .topk import mask_and_topk, merge_topk, topk_smallest
+from .topk import blocked_topk_scan, mask_and_topk, merge_topk, topk_smallest
 
 __all__ = [
     "ivf_pq_adc_grouped_scan",
@@ -64,6 +64,7 @@ __all__ = [
     "pq_reconstruct",
     "pq_reconstruct_device",
     "pq_train",
+    "blocked_topk_scan",
     "mask_and_topk",
     "merge_topk",
     "topk_smallest",

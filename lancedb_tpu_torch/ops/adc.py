@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .cuda_build import launch, launch_counts, max_smem_bytes
+from .cuda_build import count_launch, launch, launch_counts, max_smem_bytes  # noqa: F401
 from .cuda_build import reset_launch_counts  # noqa: F401
 from .util import MAX_QPC, cdiv, grouped_plan, round_up
 from .util import check_tensor as _check
@@ -119,7 +119,7 @@ def ivf_pq_adc_scan(
          qc_dots.data_ptr(), qn2.data_ptr(), out.data_ptr()],
         [q, np_, s, k, pmax], dev,
     )
-    launch_counts["ivf_pq_adc_scan"] += 1
+    count_launch("ivf_pq_adc_scan")
     return out
 
 
@@ -245,7 +245,7 @@ def ivf_pq_adc_grouped_scan(
     gpid, pair_of_slot, g = grouped_plan(probe_ids, p, qpc)
     launch_adc_grouped(gpid, pair_of_slot, g, qpc, probe_ids, dlut, codes, rnorms, qc_dots,
                        qn2, out)
-    launch_counts["ivf_pq_adc_grouped_scan"] += 1
+    count_launch("ivf_pq_adc_grouped_scan")
     return out
 
 

@@ -46,16 +46,26 @@ _entries: dict = {}  # their launch entries, by name
 build_logs: dict[str, str] = {}
 
 # launches of each kernel, counted by its wrapper where it launches it
+# (through count_launch: the query server launches from several threads)
 launch_counts: dict[str, int] = {
     "ivf_pq_adc_scan": 0, "ivf_pq_adc_grouped_scan": 0, "ivf_flat_grouped_scan": 0,
     "ivf_flat_scan": 0, "adc_sum_select": 0, "adc_sum_gather": 0, "smem_gather": 0,
     "group_plan": 0,
 }
+_count_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one to ``name``'s launch count, under a lock: a bare ``+= 1``
+    on the dict is a read-modify-write that concurrent threads can lose."""
+    with _count_lock:
+        launch_counts[name] += 1
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    with _count_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
 
 
 def sources() -> list[str]:

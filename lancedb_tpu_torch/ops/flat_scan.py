@@ -28,7 +28,7 @@ import functools
 
 import torch
 
-from .cuda_build import launch, launch_counts
+from .cuda_build import count_launch, launch
 from .util import MAX_QPC, check_tensor, grouped_plan, round_up
 
 # bytes of one of the per-pair kernel's two row stages
@@ -123,7 +123,7 @@ def ivf_flat_grouped_scan(
         return out
     gpid, pair_of_slot, g = grouped_plan(probe_ids, p, qpc)
     launch_grouped(gpid, pair_of_slot, g, qpc, queries, vectors, norms, alpha, gamma, out)
-    launch_counts["ivf_flat_grouped_scan"] += 1
+    count_launch("ivf_flat_grouped_scan")
     return out
 
 
@@ -191,7 +191,7 @@ def ivf_flat_scan(
         [q, np_, pmax, d, int(vectors.dtype == torch.bfloat16), geo["npb"], geo["tile_rows"],
          geo["pitch"], geo["lanes"], geo["cpl"]], dev,
     )
-    launch_counts["ivf_flat_scan"] += 1
+    count_launch("ivf_flat_scan")
     return out
 
 

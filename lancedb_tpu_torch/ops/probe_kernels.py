@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_build import launch, launch_counts, max_smem_bytes
+from .cuda_build import count_launch, launch, launch_counts, max_smem_bytes  # noqa: F401
 from .util import cdiv, check_tensor
 
 ADC_SUM_DESIGNS = ("select", "gather")
@@ -105,7 +105,7 @@ def adc_sum(dlut: torch.Tensor, codes: torch.Tensor, ncells: int,
         return out
     launch("adc_sum_ab", [dlut.data_ptr(), codes.data_ptr(), out.data_ptr()],
            [ncells, q, p, s, k, pmax, ADC_SUM_DESIGNS.index(design)], dev)
-    launch_counts[f"adc_sum_{design}"] += 1
+    count_launch(f"adc_sum_{design}")
     return out
 
 
@@ -175,7 +175,7 @@ def smem_gather(x: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
     if s * w == 0:
         return out
     launch("smem_gather", [x.data_ptr(), idx.data_ptr(), out.data_ptr()], [s, w, axis], dev)
-    launch_counts["smem_gather"] += 1
+    count_launch("smem_gather")
     return out
 
 

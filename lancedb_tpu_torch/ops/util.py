@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_build import launch, launch_counts, max_smem_bytes, static_smem_bytes
+from .cuda_build import count_launch, launch, max_smem_bytes, static_smem_bytes
 
 # +inf stand-in for masked entries (the reference's INF, ops/util.py:53)
 INF = 3.4e38
@@ -152,5 +152,5 @@ def grouped_plan(probe_ids: torch.Tensor, p: int, qpc: int):
     runs = 0 if runs_fit else scratch + (0 if counters_fit else 8 * p)
     launch("group_plan", [probe_ids.data_ptr(), base, base + 4 * g, counters, runs],
            [q * np_, p, qpc, g], dev)
-    launch_counts["group_plan"] += 1
+    count_launch("group_plan")
     return gpid, pair_of_slot, g

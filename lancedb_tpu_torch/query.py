@@ -11,7 +11,9 @@ Port of the reference's query.py:
      host; hamming brute-forces packed uint8 columns
   3. optional exact refine (fused on the device when the column fits)
   4. distance range on the host, then hydrate the selected columns with
-     take_rows, append _distance; postfilter and offset apply to the rows
+     take_rows, append _distance; postfilter and offset apply to the rows.
+     Each call counts one ``lancedb.queries`` (metrics.py) before it
+     hydrates, whatever its number of query vectors
 
 Full-text search runs the BM25 index on the host (index/fts.py). A hybrid
 search runs its full-text legs on host threads while the calling thread
@@ -47,6 +49,7 @@ from .errors import InvalidInputError
 from .filters.eval import evaluate_expression, evaluate_predicate_mask
 from .filters.sql import parse_sql_expr
 from .index.vector import SearchParams, brute_force_search
+from .metrics import recorder
 from .ops.distance import normalize_metric
 from .rerankers.base import RELEVANCE_COL, SCORE_COL
 from .storage.dataset import ROW_ID_COL
@@ -190,6 +193,7 @@ def execute_vector_query(table, req: VectorQueryRequest) -> pa.Table:
     if req.upper_bound is not None:
         dists = np.where(dists < req.upper_bound, dists, np.inf)
     rowids = np.where(np.isfinite(dists), rowids, _INVALID_ROWID)
+    recorder().increment_counter("lancedb.queries", labels={"table": table.name, "kind": "vector"})
     with _op_timer("TakeExec") as t:
         out = _hydrate_results(table, req, dists, rowids, multi)
         t.set_rows(out.num_rows)

@@ -1,34 +1,26 @@
-"""Rerankers: fuse the vector and full-text legs of a hybrid search.
+"""Rerankers: fuse the vector and full-text legs of a hybrid search, or
+re-order one leg's results.
 
-RRF, linear combination and MRR are ported. The rerankers that need
-model weights (cross-encoder, ColBERT, answerdotai) or a network service
-(Cohere, Jina, OpenAI, VoyageAI, watsonx) keep their names here and
-raise NotImplementedError naming their ROADMAP item (A12f).
+RRF, linear combination and MRR fuse on the host. The REST rerankers
+(Cohere, Jina, OpenAI, VoyageAI, watsonx) call their provider's endpoint
+at ``base_url``. ColBERT scores by MaxSim on its device; the
+cross-encoder and answerdotai rerankers need their package and weights
+and raise as the reference's do without them.
 """
 
 from .base import Reranker, normalize_scores
+from .colbert import ColbertReranker
+from .cross_encoder import AnswerdotaiRerankers, CrossEncoderReranker
 from .linear_combination import LinearCombinationReranker
 from .mrr import MRRReranker
+from .rest import (
+    CohereReranker,
+    JinaReranker,
+    OpenaiReranker,
+    VoyageaiReranker,
+    WatsonxReranker,
+)
 from .rrf import RRFReranker
-
-
-def _not_ported(name: str, needs: str) -> type:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{name} needs {needs} and is not ported to lancedb_tpu_torch yet (ROADMAP A12f)"
-        )
-
-    return type(name, (Reranker,), {"__init__": __init__, "__doc__": f"Not ported: needs {needs}."})
-
-
-CrossEncoderReranker = _not_ported("CrossEncoderReranker", "model weights")
-AnswerdotaiRerankers = _not_ported("AnswerdotaiRerankers", "model weights")
-ColbertReranker = _not_ported("ColbertReranker", "model weights")
-CohereReranker = _not_ported("CohereReranker", "a network service")
-JinaReranker = _not_ported("JinaReranker", "a network service")
-OpenaiReranker = _not_ported("OpenaiReranker", "a network service")
-VoyageaiReranker = _not_ported("VoyageaiReranker", "a network service")
-WatsonxReranker = _not_ported("WatsonxReranker", "a network service")
 
 __all__ = [
     "Reranker",

@@ -249,6 +249,8 @@ class Table:
     def __init__(self, connection, name: str, dataset: Dataset):
         self._conn = connection
         self.name = name
+        # set by a namespace catalogue that creates or opens the table
+        self._namespace_path: list[str] = []
         self.__dataset = dataset
         self._searchers: dict[str, Any] = {}
         self._fts_indexes: dict[str, Any] = {}
@@ -301,10 +303,16 @@ class Table:
         with self._refresh_lock:
             self._refresh()
 
+    # a write listener: a table opened through a REST namespace bumps its
+    # read-freshness baseline on every write (namespace_rest.py)
+    _on_write = None
+
     def _invalidate_caches(self) -> None:
         self._searchers.clear()
         self._fts_indexes.clear()
         self._conn.session.invalidate(self.__dataset.root)
+        if self._on_write is not None:
+            self._on_write()
 
     @property
     def schema(self) -> pa.Schema:
@@ -328,12 +336,13 @@ class Table:
 
     @property
     def namespace(self) -> list[str]:
-        """The namespace path: empty, namespaces wait for ROADMAP A12e."""
-        return []
+        """The namespace path of the table (empty at a database's root)."""
+        return self._namespace_path
 
     @property
     def id(self) -> str:
-        return self.name
+        """The full identifier, ``namespace$name``."""
+        return "$".join(self._namespace_path + [self.name])
 
     @classmethod
     def open(cls, db, name: str, **kw) -> "Table":
@@ -439,7 +448,9 @@ class Table:
         if progress is not None and progress is not False and on_progress is None:
             on_progress = _ProgressAdapter(progress)
         if mode == "append" and isinstance(data, (pads.Dataset, pads.Scanner)):
-            data = data.to_reader() if isinstance(data, pads.Scanner) else data.scanner().to_reader()
+            from .scannable import to_scannable
+
+            data = to_scannable(data).reader()
         if mode == "append" and isinstance(data, (pa.RecordBatchReader, types.GeneratorType)):
             if self._embedding_functions or blob_columns(self.schema):
                 # each batch is embedded (and its blobs stored) on its own

@@ -9,6 +9,8 @@ are compared both ways: each package searches the index the other one
 built.
 """
 
+import sys
+
 import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
@@ -193,7 +195,7 @@ def test_fts_search_matches_reference(fts_dbs, builder, case):
         assert got.equals(_run_fts(tbls["port"], port_query, cols, where))
 
 
-def test_tokenize_and_refusals(fts_dbs):
+def test_tokenize_and_refusals(fts_dbs, monkeypatch):
     tbls = _open_both(fts_dbs["ref"], "docs")
     text = "The Runners were RUNNING"
     assert ([(t.text, t.position) for t in tbls["port"].tokenize(text)]
@@ -205,11 +207,23 @@ def test_tokenize_and_refusals(fts_dbs):
     with pytest.raises(ref_errors.InvalidInputError) as want:
         tbls["ref"].search("w1", query_type="vector")
     assert str(got.value) == str(want.value)
-    from lancedb_tpu_torch.rerankers import CohereReranker, CrossEncoderReranker
+    # the rerankers are ported: a cross-encoder without its package raises
+    # the reference's error, and a REST reranker without its key raises the
+    # reference's error when it is called (never at construction)
+    import lancedb_tpu.rerankers as ref_rr
+    import lancedb_tpu_torch.rerankers as port_rr
 
-    for cls in (CrossEncoderReranker, CohereReranker):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            cls()
+    monkeypatch.setitem(sys.modules, "sentence_transformers", None)
+    monkeypatch.delenv("COHERE_API_KEY", raising=False)
+    msgs = []
+    for rr in (port_rr, ref_rr):
+        with pytest.raises(RuntimeError) as got:
+            rr.CrossEncoderReranker()
+        msgs.append(str(got.value))
+        with pytest.raises(Exception, match="COHERE_API_KEY") as got:
+            rr.CohereReranker(base_url="http://127.0.0.1:9")._key()
+        msgs.append(str(got.value))
+    assert msgs[:2] == msgs[2:]
 
 
 # ------------------------------------------------------- scalar indexes

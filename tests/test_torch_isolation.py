@@ -141,6 +141,29 @@ sdb.create_table("k2", pa.table({"id": np.arange(0, 600, 3)}))
 lancedb_tpu_torch.set_sql_memory_budget(1 << 16)
 assert sdb.sql("SELECT COUNT(*) AS n FROM k JOIN k2 ON k.id = k2.id").to_pydict() == {"n": [17]}
 lancedb_tpu_torch.set_sql_memory_budget(None)
+# the query server and its client, the namespace catalogues and the rest
+# of the surface
+from lancedb_tpu_torch import expr, integrations, metrics, namespace, namespace_rest, scannable
+from lancedb_tpu_torch.remote import QueryServer, batching, oauth, protocol
+from lancedb_tpu_torch.rerankers import ColbertReranker, CohereReranker, CrossEncoderReranker
+from lancedb_tpu_torch.ops.topk import blocked_topk_scan
+with QueryServer(sdb, batch_window_ms=0) as srv:
+    rdb = lancedb_tpu_torch.connect("db://x", host_override=srv.url)
+    assert rdb.open_table("t").search(x11).nprobes(4).limit(1).to_arrow()["id"][0].as_py() == 11
+    assert rdb.sql("SELECT COUNT(*) AS n FROM k").to_pydict() == {"n": [50]}
+ns = lancedb_tpu_torch.connect_namespace(sys.argv[1] + "/catalog", device="cpu")
+ns.create_namespace(["prod"])
+ns.create_table(["prod", "items"], pa.table({"id": np.arange(40), "vector": pa.FixedSizeListArray
+    .from_arrays(pa.array(x11.tolist() * 40, pa.float32()), 16)}))
+with lancedb_tpu_torch.NamespaceServer(sys.argv[1] + "/catalog", device="cpu") as nsrv:
+    client = lancedb_tpu_torch.connect_namespace_client(nsrv.address, device="cpu")
+    assert client.open_table(["prod", "items"]).search(x11).limit(2).to_arrow().num_rows == 2
+assert tbl.count_rows((expr.col("id") < 5).sql()) == 5
+assert integrations.to_pyarrow_dataset(tbl).count_rows(filter="id < 5") == 5
+assert scannable.to_scannable({"a": [1, 2]}).num_rows == 2
+assert any(c["name"] == "lancedb.queries" for c in metrics.snapshot_metrics()["counters"])
+v, i = blocked_topk_scan(lambda b: (torch.arange(4.0).repeat(2, 1), torch.arange(4)), 2, 3, 2)
+assert i.tolist() == [[0, 0, 1]] * 2
 assert not any(m == "jax" or m.startswith(("jax.", "lancedb_tpu."))
                for m, mod in sys.modules.items() if mod is not None)
 print("ok")
@@ -196,19 +219,24 @@ def test_unported_surface_names_its_roadmap_item(tmp_path):
     # what ROADMAP A12b lifted is served: SQL over the connection's tables
     assert db.sql("SELECT 1").num_rows == 1
     assert db.sql("SELECT COUNT(*) AS n FROM t").to_pydict() == {"n": [4]}
-    for call, item in (
-        (lambda: db.create_namespace(["ns"]), "A12e"),
-        (lambda: lancedb_tpu_torch.connect("db://remote", device="cpu"), "A12e"),
-    ):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            call()
+    # what ROADMAP A12e and A12f lifted is served: the namespace methods,
+    # and db:// through a server, which owns the device (so a device beside
+    # a db:// URI is refused); no method of the port names a ROADMAP item
+    db.create_namespace(["ns"])
+    assert db.list_namespaces() == ["ns"] and db.table_names() == ["t"]
+    from lancedb_tpu_torch.errors import InvalidInputError
+
+    with pytest.raises(InvalidInputError, match="server's device"):
+        lancedb_tpu_torch.connect("db://remote", device="cpu")
     with pytest.raises(AttributeError):
         tbl.no_such_method
+    with pytest.raises(AttributeError):
+        db.no_such_method
+    for path in (REPO / "lancedb_tpu_torch").rglob("*.py"):
+        assert "not ported to lancedb_tpu_torch" not in path.read_text(), path
     # what ROADMAP A12a, A12c and A12d lifted is served: a text query on a
     # table without an embedding function and a search with use_lsm are
     # refused as the reference refuses them, the rest runs
-    from lancedb_tpu_torch.errors import InvalidInputError
-
     for call in (lambda: tbl.search("some text", query_type="vector"),
                  lambda: tbl.search(x[0]).use_lsm().to_arrow(),
                  lambda: tbl.fetch_blobs("vector", [0])):

@@ -261,13 +261,15 @@ def test_unported_surface_still_names_a4(tables):
     (update, merge_insert, plain scans, the builders' and the table's
     to_pandas) is served since the lifecycle slice and gives the
     reference's results (tests/test_torch_table_api.py holds each in
-    full). Nothing here writes to the shared table."""
+    full); since the namespaces and the remote client were ported, no
+    class keeps a list of refused methods at all. Nothing here writes to
+    the shared table."""
     from lancedb_tpu_torch import aio, db, query, table
 
     port, ref = tables()
     classes = [c for m in (aio, db, query, table) for c in vars(m).values()
                if isinstance(c, type) and "_NOT_PORTED" in vars(c)]
-    assert classes and all("A4" not in c._NOT_PORTED.values() for c in classes)
+    assert not classes
     for t in (port, ref):
         with pytest.raises(Exception, match="update requires values"):
             t.update(where="id = 1")
