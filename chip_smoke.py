@@ -10,7 +10,8 @@
                                           # path i; --phase table_surface:
                                           # path j; --phase sql: path k;
                                           # --phase remote: path a's table
-                                          # and 8-bit index, then path l)
+                                          # and 8-bit index, then path l;
+                                          # --phase multiprocess: path m)
     python3 chip_smoke.py --out smoke.json # also write the full summary as JSON
 
 Phases:
@@ -228,6 +229,28 @@ Phases:
      connect_namespace_client, each opening the table on the card and
      giving the local ids for the 256 raw queries; a child namespace
      created, listed and dropped. No table or index is built for it.
+  12. the two-process leg (part of the whole run, after path i): python -m
+     lancedb_tpu_torch.parallel.dryrun_two_process --device cuda as a
+     subprocess, the reference dryrun's sizes (512 x 16 rows, k-means K 8,
+     the flat search k 5, IVF_FLAT on the 1 x 8 and the 2 x 4 grid,
+     distributed_kmeans, the feed) over two gloo ranks of cuda:0 x 4; its
+     per-worker lines and the process count printed, its seconds timed.
+  13. path m, several processes (--phase multiprocess only): path i's
+     10,000,000 x 96 make_clustered rows (seed 0) and 256 queries, first
+     on a one-process mesh of cuda:0 x 4 (distributed_kmeans at 4096
+     partitions, 5 iterations, one more k-means step for the counts, the
+     sharded flat search at k 10), then over two ranks started as
+     subprocesses of this script, joined by gloo (NCCL refuses two ranks
+     on one card), each holding its half of the rows on a mesh of cuda:0
+     x 2 (4 shards in all): the same steps, the k-means counts and the
+     flat search over this rank's rows alone (shard_local_rows), the
+     per-worker metrics after a synchronize, and the feed over a table of
+     the rows (global batch 4096, 1,000,000 rows a rank, every tensor on
+     the card). Counts and flat ids must equal the one-process mesh's,
+     the centroids bit for bit or within 1e-5, the flat recall at least a
+     plain bf16 brute force's less 0.01; seconds, peak memory and rows/s
+     of each rank printed. The card never holds both copies: the one
+     process's run ends before the ranks start.
 
 Prints, on lines before the last, the card's name and power limit, a
 ``kernels:`` line and one JSON object ``{"kernels": [...]}``; the last
@@ -1480,8 +1503,8 @@ def probes_phase(card: str) -> dict:
 def kernel_phases(phase: str, card: str) -> tuple[dict, list[dict]]:
     """The kernel checks, then (phase "all") paths a-c, the OPQ build and
     path e on the 1M x 128 table, the probes, path d, path f, path k
-    (SQL), path h and path i. Returns (the summary, the kernel records of
-    the JSON line)."""
+    (SQL), path h, path i and the two-process leg. Returns (the summary,
+    the kernel records of the JSON line)."""
     import torch
 
     plan_line, plan_rest = synthetic_plan_checks()
@@ -1518,6 +1541,7 @@ def kernel_phases(phase: str, card: str) -> tuple[dict, list[dict]]:
         summary["sql"], _ = sql_phase(card)  # host SQL: no kernel
         summary["lifecycle"], lifecycle_kernels = lifecycle_phase(card)
         summary["mesh"], mesh_kernels = mesh_phase(card)
+        summary["two_process"] = two_process_leg(card)
         counts: dict = {}  # launches on the main path, per kernel
         for r in main_kernels:
             counts[r["counter"]] = counts.get(r["counter"], 0) + r["launches"]
@@ -3037,6 +3061,312 @@ def mesh_phase(card: str) -> tuple[dict, list[dict]]:
     return results, [krec]
 
 
+# ---------------------------------------------------------------- path m
+# several processes (ROADMAP A10b): path i's configuration (BASELINE config
+# #5 at DEEP's widths, 10M x 96 make_clustered rows, seed 0) over two ranks
+# on cuda:0 joined by gloo (NCCL refuses two ranks on one card), each
+# holding its half of the rows on a mesh of cuda:0 x 2: 4 shards in all
+MP_WORLD, MP_LOCAL_CELLS = 2, 2
+MP_KMEANS_PARTITIONS, MP_KMEANS_ITERS = 4096, 5
+MP_FEED_ROWS = 1_000_000  # a rank, in global batches of FEED_BATCH
+MP_COLLECTIVE_TIMEOUT_S = 300.0
+MP_DEADLINE_S = 900.0
+
+
+def two_process_leg(card: str) -> dict:
+    """The whole run's short leg: the dryrun's own sizes (512 x 16 rows,
+    8 cells) on cuda:0 x 4 a rank over gloo, its two ranks started as
+    subprocesses by the dryrun's parent, run here so that only the ranks
+    pay an interpreter's start. Prints its per-worker lines and the
+    process count."""
+    import contextlib
+    import io
+
+    from lancedb_tpu_torch.parallel import dryrun_two_process
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = dryrun_two_process.main(["--device", "cuda"])
+    secs = time.perf_counter() - t0
+    text = buf.getvalue()
+    if rc != 0 or "TWO_PROCESS_DRYRUN OK workers=2 rows=512" not in text:
+        raise AssertionError(f"the two-process dryrun failed (rc {rc}):\n{text[-8000:]}")
+    lines = [s for s in text.splitlines()
+             if s.startswith(("--- worker", "ShardedScanExec", "TWO_PROCESS_DRYRUN", "rank "))]
+    for s in lines:
+        print(f"[two_process] {s}", flush=True)
+    print(f"[two_process] processes {MP_WORLD}, {secs:.3f} s ({card})", flush=True)
+    return {"seconds": secs, "processes": MP_WORLD, "lines": lines}
+
+
+def mp_flat_inputs(mesh, x, local: bool, rank: int = 0):
+    """The sharded flat search's placed rows, norms and slot ids: the whole
+    array's blocks (one process), or this rank's half (shard_local_rows)."""
+    from lancedb_tpu_torch.parallel import shard_local_rows, shard_rows
+
+    n = len(x)
+    mine = slice(rank * n // MP_WORLD, (rank + 1) * n // MP_WORLD) if local else slice(0, n)
+    rows = np.ascontiguousarray(x[mine])
+    norms2 = np.concatenate([np.sum(rows[s:s + (1 << 20)].astype(np.float64) ** 2, axis=1)
+                             for s in range(0, len(rows), 1 << 20)]).astype(np.float32)
+    slots = np.arange(n, dtype=np.int32)[mine]
+    if local:
+        return [shard_local_rows(mesh, a, (n, *a.shape[1:])) for a in (rows, norms2, slots)]
+    return [shard_rows(mesh, a) for a in (rows, norms2, slots)]
+
+
+def mp_kmeans_counts(mesh, x, cents, local: bool, rank: int = 0):
+    """Each row's partition under the final centroids, counted over the
+    mesh: one more step of make_distributed_kmeans_step."""
+    from lancedb_tpu_torch.parallel import (make_distributed_kmeans_step, replicate,
+                                            shard_local_rows, shard_rows)
+    from lancedb_tpu_torch.parallel.mesh import first_owned
+
+    n = len(x)
+    over = ("query", "shard")
+    if local:
+        mine = np.ascontiguousarray(x[rank * n // MP_WORLD:(rank + 1) * n // MP_WORLD])
+        xj = shard_local_rows(mesh, mine, x.shape, over=over)
+    else:
+        xj = shard_rows(mesh, x, over=over)
+    step = make_distributed_kmeans_step(mesh, k=MP_KMEANS_PARTITIONS)
+    _, counts = step(xj, replicate(mesh, cents))
+    return first_owned(counts).cpu().numpy()
+
+
+def multiprocess_child(rank: int, coordinator: str, workdir: str) -> int:
+    """One rank of path m: joins the group, builds its mesh of cuda:0 x 2,
+    and writes its results to workdir/rank<r>.npz."""
+    import itertools
+    import traceback
+
+    import torch
+
+    import lancedb_tpu_torch
+    from lancedb_tpu_torch.data import StreamingDataset, TorchBatchFeeder
+    from lancedb_tpu_torch.parallel import (distributed, distributed_kmeans,
+                                            make_process_mesh, make_sharded_flat_search,
+                                            shard_rows)
+
+    distributed.initialize(coordinator, MP_WORLD, rank, timeout_s=MP_COLLECTIVE_TIMEOUT_S)
+    try:
+        out: dict = {}
+        x = np.load(Path(workdir) / "x.npy", mmap_mode="r")
+        queries = np.load(Path(workdir) / "queries.npy")
+        mesh = make_process_mesh([MESH_DEVICE] * MP_LOCAL_CELLS)
+        torch.cuda.reset_peak_memory_stats()
+        # distributed_kmeans: every rank passes the same rows and places its half
+        cents, out["kmeans_s"] = timed(lambda: distributed_kmeans(
+            mesh, x, MP_KMEANS_PARTITIONS, iters=MP_KMEANS_ITERS, seed=0))
+        out["kmeans_centroids"] = cents
+        # the counts: one more step over this rank's half, handed over alone
+        out["kmeans_counts"], out["counts_s"] = timed(
+            lambda: mp_kmeans_counts(mesh, x, cents, local=True, rank=rank))
+        out["kmeans_peak_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        placed = mp_flat_inputs(mesh, x, local=True, rank=rank)
+        step = make_sharded_flat_search(mesh, k=10)
+        q = shard_rows(mesh, queries, over="query")
+        step(q, *placed)  # warm
+        (vals, ids), out["flat_s"] = timed(lambda: step(q, *placed), 3)
+        out["flat_vals"], out["flat_ids"] = vals.cpu().numpy(), ids.cpu().numpy()
+        out["flat_peak_bytes"] = torch.cuda.max_memory_allocated()
+        del placed
+        torch.cuda.empty_cache()
+        # per-worker metrics: each rank's rows and scan ms, read after a
+        # synchronize (timed), gathered on every rank
+        workers = distributed.process_allgather(
+            np.array([rank, len(x) // MP_WORLD, out["flat_s"] * 1e3], np.float64))
+        out["workers"] = workers
+        if rank == 0:
+            for r in workers:
+                print(f"--- worker {int(r[0])} ---\nShardedScanExec: rows={int(r[1])}, "
+                      f"metrics=[elapsed_compute={r[2]:.2f}ms]", flush=True)
+        # the feed: this rank's rows of the table onto its cells
+        tbl = lancedb_tpu_torch.connect(str(Path(workdir) / "db")).open_table("deep10m_like")
+        sds = StreamingDataset(tbl, rank=rank, world_size=MP_WORLD, columns=["vector", "id"],
+                               read_batch_size=FEED_BATCH, transform=feed_rows)
+        feeder = TorchBatchFeeder(sds, FEED_BATCH, mesh=mesh, columns=["vector", "id"])
+        n_batches = -(-MP_FEED_ROWS // (FEED_BATCH // MP_WORLD))
+        it = iter(feeder)
+        t0 = time.perf_counter()
+        batches = list(itertools.islice(it, n_batches))
+        torch.cuda.synchronize()
+        feed_s = time.perf_counter() - t0
+        it.close()
+        card = torch.device(MESH_DEVICE)
+        on_card = all(len(col) == MP_LOCAL_CELLS and all(t.device == card for t in col)
+                      for b in batches for col in b.values())
+        if not on_card or len(batches) != n_batches:
+            raise AssertionError(f"rank {rank}: {len(batches)} batches, on the card: {on_card}")
+        rows = n_batches * FEED_BATCH // MP_WORLD
+        del batches
+        out["feed_rows"], out["feed_s"] = rows, feed_s
+        out["feed_rows_per_s"] = distributed.process_allgather(np.array([rows / feed_s]))[:, 0]
+        out["peak_bytes"] = max(out["kmeans_peak_bytes"], out["flat_peak_bytes"],
+                                torch.cuda.max_memory_allocated())
+        np.savez(Path(workdir) / f"rank{rank}.npz", **out)
+        print(f"rank {rank}: processes {distributed.process_count()}, cells {mesh.cells}; "
+              f"kmeans {out['kmeans_s']:.3f} s, counts {out['counts_s']:.3f} s, flat "
+              f"{out['flat_s'] * 1e3:.3f} ms, feed {rows / feed_s:.0f} rows/s, peak "
+              f"{out['peak_bytes']} bytes", flush=True)
+        distributed.shutdown()
+    except BaseException:
+        # a failed collective can leave the group unable to tear down
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        import os
+
+        os._exit(1)
+    return 0
+
+
+def mp_spawn(workdir: Path) -> list[dict]:
+    """Both ranks of path m as subprocesses of this script; waits with a
+    deadline, kills both on a failure, and returns each rank's results."""
+    import subprocess
+
+    from lancedb_tpu_torch.parallel.distributed import free_port
+
+    port = free_port()
+    procs = []
+    for r in range(MP_WORLD):
+        log = open(workdir / f"rank{r}.log", "w+")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--mp-child", str(r),
+             "--coordinator", f"127.0.0.1:{port}", "--mp-dir", str(workdir)],
+            cwd=REPO, stdout=log, stderr=subprocess.STDOUT), log))
+    deadline = time.monotonic() + MP_DEADLINE_S
+    try:
+        while time.monotonic() < deadline:
+            rcs = [p.poll() for p, _ in procs]
+            if all(rc is not None for rc in rcs) or any(rc not in (None, 0) for rc in rcs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+            log.close()
+    texts = [(workdir / f"rank{r}.log").read_text(errors="replace") for r in range(MP_WORLD)]
+    for r, t in enumerate(texts):
+        for s in t.splitlines():
+            if not s.startswith("[W"):  # c10d's warnings
+                print(f"[multiprocess] rank {r}: {s}", flush=True)
+    rcs = [p.returncode for p, _ in procs]
+    if any(rc != 0 for rc in rcs):
+        raise AssertionError(f"path m: a rank failed, exit codes {rcs}:\n"
+                             + "\n".join(t[-4000:] for t in texts))
+    res = []
+    for r in range(MP_WORLD):
+        with np.load(workdir / f"rank{r}.npz") as z:
+            res.append({k: z[k] for k in z.files})
+    return res
+
+
+def multiprocess_phase(card: str) -> tuple[dict, list[dict]]:
+    """Path m: path i's rows over two processes. The one-process 4-cell
+    mesh runs first, then the two ranks, so that the card never holds both
+    copies of the rows."""
+    import gc
+
+    import pyarrow as pa
+    import torch
+
+    import lancedb_tpu_torch
+    from lancedb_tpu_torch.parallel import distributed_kmeans, make_mesh, make_sharded_flat_search
+    from lancedb_tpu_torch.parallel import shard_rows
+    from lancedb_tpu_torch.probes.common import make_clustered
+
+    n, dim, nq, k = MESH_ROWS, MESH_DIM, MESH_QUERIES, 10
+    rec: dict = {"card": card, "rows": n, "dim": dim, "queries": nq, "processes": MP_WORLD,
+                 "cells_a_rank": MP_LOCAL_CELLS, "partitions": MP_KMEANS_PARTITIONS,
+                 "kmeans_iters": MP_KMEANS_ITERS}
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    x, queries = make_clustered(np.random.default_rng(0), n, dim, n_queries=nq)
+    rec["data_s"] = time.perf_counter() - t0
+    x_d = torch.from_numpy(x).to(MESH_DEVICE)
+    gt = exact_topk_chunked(x_d, queries, k)
+    bf16_recall = recall(exact_topk_chunked(x_d, queries, k, bf16=True), gt)
+    del x_d
+    torch.cuda.empty_cache()
+
+    # the one-process mesh of the same 4 cells
+    mesh4 = make_mesh(devices=[MESH_DEVICE] * (MP_WORLD * MP_LOCAL_CELLS))
+    torch.cuda.reset_peak_memory_stats()
+    one_cents, rec["one_process_kmeans_s"] = timed(lambda: distributed_kmeans(
+        mesh4, x, MP_KMEANS_PARTITIONS, iters=MP_KMEANS_ITERS, seed=0))
+    one_counts = mp_kmeans_counts(mesh4, x, one_cents, local=False)
+    rec["one_process_kmeans_peak_bytes"] = int(torch.cuda.max_memory_allocated())
+    gc.collect()
+    torch.cuda.empty_cache()
+    placed = mp_flat_inputs(mesh4, x, local=False)
+    step = make_sharded_flat_search(mesh4, k=k)
+    q4 = shard_rows(mesh4, queries, over="query")
+    step(q4, *placed)
+    (one_vals, one_ids), rec["one_process_flat_s"] = timed(lambda: step(q4, *placed), 3)
+    one_vals, one_ids = one_vals.cpu().numpy(), one_ids.cpu().numpy()
+    del placed, q4
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[multiprocess] one process ({card}): {json.dumps(rec)}", flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mp_") as tmp:
+        workdir = Path(tmp)
+        t0 = time.perf_counter()
+        np.save(workdir / "x.npy", x)
+        np.save(workdir / "queries.npy", queries)
+        rec["save_s"] = time.perf_counter() - t0
+        ids = np.arange(n, dtype=np.int64)
+        t0 = time.perf_counter()
+        lancedb_tpu_torch.connect(str(workdir / "db")).create_table("deep10m_like", pa.table({
+            "id": ids, "vector": pa.FixedSizeListArray.from_arrays(pa.array(x.ravel()), dim)}))
+        rec["create_table_s"] = time.perf_counter() - t0
+        del ids
+        t0 = time.perf_counter()
+        ranks = mp_spawn(workdir)
+        rec["two_process_s"] = time.perf_counter() - t0
+
+    # every rank the same result, equal to the one process's
+    checks = {}
+    for r, res in enumerate(ranks):
+        if int(res["kmeans_counts"].sum()) != n or not np.array_equal(res["kmeans_counts"],
+                                                                       one_counts):
+            raise AssertionError(f"rank {r}: k-means counts differ from the one-process mesh's")
+        if not np.array_equal(res["flat_ids"], one_ids):
+            raise AssertionError(f"rank {r}: flat ids differ from the one-process mesh's")
+        for key in ("kmeans_centroids", "flat_vals", "kmeans_counts", "flat_ids"):
+            if not np.array_equal(res[key], ranks[0][key]):
+                raise AssertionError(f"rank {r}: {key} differs from rank 0's")
+    cents = ranks[0]["kmeans_centroids"]
+    checks["centroids_bit_equal"] = bool(np.array_equal(cents, one_cents))
+    checks["centroids_max_abs_diff"] = float(np.max(np.abs(cents - one_cents)))
+    if not checks["centroids_bit_equal"]:
+        np.testing.assert_allclose(cents, one_cents, rtol=1e-5, atol=1e-5)
+    checks["flat_vals_bit_equal"] = bool(np.array_equal(ranks[0]["flat_vals"], one_vals))
+    checks["flat_recall@10"] = recall(ranks[0]["flat_ids"].astype(np.int64), gt)
+    checks["plain_bf16_recall@10"] = bf16_recall
+    if checks["flat_recall@10"] < bf16_recall - 0.01:
+        raise AssertionError(f"path m flat recall: {checks}")
+    rec["checks"] = checks
+    rec["ranks"] = [{key: float(res[key]) for key in ("kmeans_s", "counts_s", "flat_s",
+                                                        "feed_rows", "feed_s", "peak_bytes",
+                                                        "kmeans_peak_bytes", "flat_peak_bytes")}
+                    for res in ranks]
+    rec["workers"] = ranks[0]["workers"].tolist()
+    rec["feed_rows_per_s"] = ranks[0]["feed_rows_per_s"].tolist()
+    rec["feed_rows_per_s_sum"] = float(ranks[0]["feed_rows_per_s"].sum())
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[multiprocess] ({card}): {json.dumps(rec)}", flush=True)
+    print(f"card: {card}", flush=True)
+    return rec, []
+
+
 # ---------------------------------------------------------------- path j
 # the bench's FTS corpus (bench.py:426 make_corpus, 1,000,000 docs as in its
 # FTS config, bench.py:1296-1425) as a LanceModel table embedded by "hash"
@@ -3906,10 +4236,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase",
                     choices=("all", "kernels", "large_d", "hnsw", "fts", "vector_family",
-                             "lifecycle", "mesh", "table_surface", "sql", "remote"),
+                             "lifecycle", "mesh", "table_surface", "sql", "remote",
+                             "multiprocess"),
                     default="all", help="kernels: the kernel checks only; large_d, hnsw, fts, "
-                    "vector_family, lifecycle, mesh, table_surface, sql, remote: that path only")
+                    "vector_family, lifecycle, mesh, table_surface, sql, remote, multiprocess: "
+                    "that path only")
     ap.add_argument("--out", help="also write the full summary as JSON to this file")
+    # one rank of path m, started by --phase multiprocess
+    ap.add_argument("--mp-child", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--coordinator", help=argparse.SUPPRESS)
+    ap.add_argument("--mp-dir", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if not (REPO / "lancedb_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout that holds lancedb_tpu_torch/",
@@ -3921,6 +4257,8 @@ def main() -> int:
         print("no CUDA device: chip_smoke.py runs on the card only", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    if a.mp_child is not None:
+        return multiprocess_child(a.mp_child, a.coordinator, a.mp_dir)
     from lancedb_tpu_torch.ops import cuda_build
     from lancedb_tpu_torch.probes.common import card_line
 
@@ -3940,11 +4278,13 @@ def main() -> int:
     summary: dict = {}
     kernels: list[dict] = []
     if a.phase in ("large_d", "hnsw", "fts", "vector_family", "lifecycle", "mesh",
-                   "table_surface", "sql", "remote"):
+                   "table_surface", "sql", "remote", "multiprocess"):
         if a.phase == "large_d":
             summary["large_d"], kernels = large_d_path(card)
         elif a.phase == "mesh":
             summary["mesh"], kernels = mesh_phase(card)
+        elif a.phase == "multiprocess":
+            summary["multiprocess"], kernels = multiprocess_phase(card)
         elif a.phase == "lifecycle":
             summary["lifecycle"], kernels = lifecycle_phase(card)
         elif a.phase == "table_surface":

@@ -7,17 +7,22 @@ over a mesh. Here:
 * samples stream from the elastic StreamingDataset (fixed virtual splits,
   so checkpoints survive a change of world size);
 * each process stacks its rows into numpy columns, then into pinned host
-  tensors, copied ``non_blocking`` to the mesh's devices: row block i
-  goes to data device i, the split ``NamedSharding(P("data"))`` gives;
-  with one device a column is a plain tensor on it;
+  tensors, copied ``non_blocking`` to its own cells' devices: row block
+  i goes to the process's i-th device, the split
+  ``NamedSharding(P("data"))`` gives; with one device a column is a plain
+  tensor on it. Where the reference assembles one global ``jax.Array``
+  from every process's rows, a rank here holds its own blocks: on a mesh
+  of several processes (parallel/mesh.py ``make_process_mesh``), rank r's
+  ``batch_size // world_size`` rows on rank r's cells;
 * a background thread keeps ``prefetch`` placed batches ahead, so the
   host's Arrow → numpy work and the copies overlap the training step.
 
 Resumability: ``state_dict()`` is the dataset's state as of the last batch
 the caller received, so a feeder loaded from it yields the next batch of
-the uninterrupted run. (The reference passes the dataset's live state
-through, which the prefetch thread may have moved up to prefetch + 1
-batches ahead.)
+the uninterrupted run. Under several processes the state is per rank:
+each rank saves its own and resumes from it. (The reference passes the
+dataset's live state through, which the prefetch thread may have moved
+up to prefetch + 1 batches ahead.)
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from ..errors import InvalidInputError
+from ..parallel.distributed import process_count
 
 
 def _stack_column(values: list) -> np.ndarray:
@@ -51,13 +57,6 @@ def _stack_column(values: list) -> np.ndarray:
     return arr
 
 
-def _process_count() -> int:
-    """The torch.distributed world size when a process group is up, else 1."""
-    import torch.distributed as dist
-
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-
-
 class TorchBatchFeeder:
     """Iterate fixed-size batches placed on a mesh's devices.
 
@@ -65,10 +64,11 @@ class TorchBatchFeeder:
                 already set). Its transform must yield dict rows (the
                 default transform does).
     batch_size: rows per GLOBAL batch. Each process contributes
-                batch_size // world_size rows, split evenly over the mesh's
-                devices.
-    mesh:       a parallel.Mesh whose devices, in grid order, take the
-                row blocks (default: every CUDA card, make_mesh()).
+                batch_size // world_size rows (the torch.distributed
+                world), split evenly over its own cells' devices.
+    mesh:       a parallel.Mesh whose devices this process holds, in grid
+                order, take the row blocks (default: every CUDA card,
+                make_mesh()).
     columns:    restrict/order the emitted columns.
     prefetch:   placed batches to keep ahead (background thread).
     drop_last:  drop the trailing partial batch (a training step wants
@@ -93,12 +93,12 @@ class TorchBatchFeeder:
 
             mesh = make_mesh()
         self._ds = dataset
-        self._devices = list(mesh.devices.flat)
+        self._devices = [mesh.devices[c] for c in mesh.cells]  # this process's cells
         self._columns = columns
         self._prefetch = max(1, prefetch)
         self._drop_last = drop_last
         self._transform = transform
-        n_proc = _process_count()
+        n_proc = process_count()
         if batch_size % n_proc:
             raise InvalidInputError(
                 f"batch_size {batch_size} must divide by process_count {n_proc}"

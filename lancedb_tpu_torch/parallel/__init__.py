@@ -1,9 +1,11 @@
 """The device mesh: sharded search, distributed k-means and sharded
 IVF_PQ serving over a (query, shard) grid of torch devices driven by one
-process (port of the reference's parallel/)."""
+process, and the searches and k-means over a grid that spans several
+processes under torch.distributed (port of the reference's parallel/)."""
 
 from .build import ShardedIvfPqIndex, distributed_kmeans
-from .mesh import QUERY_AXIS, SHARD_AXIS, Mesh, make_mesh, replicate, shard_rows
+from .mesh import (QUERY_AXIS, SHARD_AXIS, Mesh, make_mesh, make_process_mesh, replicate,
+                   shard_local_rows, shard_rows)
 from .search import (
     ShardedFlatIndex,
     make_distributed_kmeans_step,
@@ -14,6 +16,8 @@ from .search import (
 __all__ = [
     "Mesh",
     "make_mesh",
+    "make_process_mesh",
+    "shard_local_rows",
     "shard_rows",
     "replicate",
     "SHARD_AXIS",

@@ -27,6 +27,9 @@ on its own blocks, once per chunk of 128 queries (the single-device
 searcher's chunk); the local top-k, an
 optional per-shard fused refine and the merge follow.
 
+Both run from one controller, as the reference's do: a mesh of several
+processes (mesh.py ``make_process_mesh``) is refused.
+
 Two orders meet here: codes, rnorms, the penalty and the refine table
 are dealt, while ``row_ids`` and the global slot ``block·pmax + offset``
 stay in the original block order.
@@ -44,7 +47,8 @@ from ..ops.kmeans import assign_residuals_device
 from ..ops.pq import default_num_sub_vectors, pq_encode_rnorms, pq_train
 from ..ops.topk import topk_smallest
 from ..ops.util import cdiv, matmul_dtype, round_up
-from .mesh import QUERY_AXIS, SHARD_AXIS, _as_tensor, _to, all_gather_cat, replicate, shard_rows
+from .mesh import (QUERY_AXIS, SHARD_AXIS, _as_tensor, _to, all_gather_cat, first_owned,
+                   one_process_only, replicate, shard_rows)
 from .search import PAD, make_distributed_kmeans_step
 
 # centroid magnitude for never-probed dummy blocks (|c|² ≈ 1e30 keeps
@@ -57,7 +61,10 @@ def distributed_kmeans(
 ) -> np.ndarray:
     """Full distributed Lloyd: rows sharded over the mesh, centroids
     replicated, ``psum`` reductions per iteration. The pad rows and the
-    initial centroids are the reference's numpy draws."""
+    initial centroids are the reference's numpy draws. On a mesh of
+    several processes every rank passes the same ``data`` and ``seed``
+    (the reference's ``device_put`` of one host array), places its own
+    cells' rows and gets the same centroids."""
     rng = np.random.default_rng(seed)
     n_dev = mesh.size
     n = len(data)
@@ -69,7 +76,8 @@ def distributed_kmeans(
     cents = replicate(mesh, np.asarray(data[rng.choice(n, k, replace=False)], np.float32))
     for _ in range(iters):
         cents, _counts = step(xj, cents)
-    return cents[0][0].cpu().numpy()
+    return first_owned(cents).cpu().numpy()
+
 
 
 class ShardedIvfPqIndex:
@@ -88,6 +96,7 @@ class ShardedIvfPqIndex:
         seed: int = 0,
         num_bits: int = 8,
     ):
+        one_process_only(mesh, "sharded IVF_PQ builds and serves")
         self.mesh = mesh
         self.metric = metric
         n, dim = vectors.shape
@@ -134,6 +143,7 @@ class ShardedIvfPqIndex:
         and deal them round robin. Built once, served on N devices."""
         from ..index.vector import _load_npy
 
+        one_process_only(mesh, "sharded IVF_PQ builds and serves")
         if index_meta.index_type != "IVF_PQ":
             raise ValueError(f"from_dataset serves IVF_PQ; got {index_meta.index_type}")
         store = dataset.store

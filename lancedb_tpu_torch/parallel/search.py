@@ -17,6 +17,13 @@ mesh's grid (parallel/mesh.py), with the same arithmetic:
   over both axes: local assignment and per-cluster sums, ``psum``
   reductions, the update.
 
+On a mesh of several processes (mesh.py ``make_process_mesh``) each rank
+runs its own cells and meets the others in ``all_gather_cells``: twice a
+chunk of queries (the candidates' values, then their ids) and twice a
+k-means step (the sums, then the counts). The merge and the sums then
+run on every rank in global shard order, so every rank returns the whole
+result, bit for bit the one-process mesh's.
+
 The products run in ``ops/util.matmul_dtype``: bf16 on the card, f32 on
 the CPU, as the reference runs them in bf16 on the TPU and f32 on its CPU
 backend. Queries are scanned a chunk at a time so a step's transients
@@ -32,7 +39,8 @@ from ..index.vector import _PAD as PAD
 from ..ops.kmeans import _sum_rows
 from ..ops.topk import topk_smallest
 from ..ops.util import lowp
-from .mesh import QUERY_AXIS, SHARD_AXIS, all_gather_cat, pad_to_multiple, psum, replicate, shard_rows
+from .mesh import (QUERY_AXIS, SHARD_AXIS, all_gather_cat, all_gather_cells, first_owned,
+                   pad_to_multiple, psum, replicate, shard_rows)
 
 # bytes one chunk of a step's largest transient may take (the flat tile's
 # distances with their sort, the IVF step's gathered partitions)
@@ -60,19 +68,26 @@ def _merge(vals: list, ids: list, k: int, device) -> tuple[torch.Tensor, torch.T
 
 
 def _query_rows(mesh, q, chunk: int, k: int, local):
-    """Run ``local(i, j, q_chunk) → (vals, ids)`` on every cell for each
-    chunk of each query row's block, merge each chunk's k smallest over
-    the shards on the row's first device, and concatenate the rows on the
-    mesh's first device → (Q, k) values and ids."""
-    out_v, out_i = [], []
-    for i, row in enumerate(q):
-        q_blk = row[0]
-        for c0 in range(0, q_blk.shape[0], chunk):
-            parts = [local(i, j, cell[c0 : c0 + chunk]) for j, cell in enumerate(row)]
-            v, ids = _merge([p[0] for p in parts], [p[1] for p in parts], k, mesh.first(i))
-            out_v.append(v.to(mesh.first()))
-            out_i.append(ids.to(mesh.first()))
-    return torch.cat(out_v), torch.cat(out_i)
+    """Run ``local(i, j, q_chunk) → (vals, ids)`` on every owned cell for
+    each chunk of its query block, gather the cells' candidates across
+    ranks, merge each query row's k smallest over its shards on the row's
+    first device, and concatenate the rows on the mesh's first device →
+    (Q, k) values and ids, on every rank. Every query block has the same
+    rows, so every rank counts the same chunks and meets the others in
+    each gather."""
+    qp, sn = mesh.shape[QUERY_AXIS], mesh.shape[SHARD_AXIS]
+    out_v, out_i = [[] for _ in range(qp)], [[] for _ in range(qp)]
+    for c0 in range(0, first_owned(q).shape[0], chunk):
+        vals = [[None] * sn for _ in range(qp)]
+        ids = [[None] * sn for _ in range(qp)]
+        for i, j in mesh.cells:
+            vals[i][j], ids[i][j] = local(i, j, q[i][j][c0 : c0 + chunk])
+        vals, ids = all_gather_cells(mesh, vals), all_gather_cells(mesh, ids)
+        for i in range(qp):
+            v, idx = _merge(vals[i], ids[i], k, mesh.first(i))
+            out_v[i].append(v.to(mesh.first()))
+            out_i[i].append(idx.to(mesh.first()))
+    return torch.cat([v for row in out_v for v in row]), torch.cat([i for row in out_i for i in row])
 
 
 def make_sharded_flat_search(mesh, k: int, metric: str = "l2"):
@@ -86,7 +101,7 @@ def make_sharded_flat_search(mesh, k: int, metric: str = "l2"):
     Output: (Q, k) distances + (Q, k) global ids on the mesh's first device."""
 
     def step(q, x, norms2, rowids):
-        n_loc = x[0][0].shape[0]
+        n_loc = first_owned(x).shape[0]
         chunk = max(1, _CHUNK_BYTES // max(1, 16 * n_loc))
 
         def local(i, j, q_blk):
@@ -116,7 +131,7 @@ def make_sharded_ivf_search(mesh, k: int, nprobes: int, metric: str = "l2"):
     Output: (Q, k) distances + (Q, k) global ids on the mesh's first device."""
 
     def step(q, centroids, parts, norms2, rowids):
-        p_loc, pmax, dim = parts[0][0].shape
+        p_loc, pmax, dim = first_owned(parts).shape
         chunk = max(1, _CHUNK_BYTES // max(1, 8 * nprobes * pmax * dim))
 
         def local(i, j, q_blk):
@@ -165,21 +180,17 @@ def make_distributed_kmeans_step(mesh, k: int, metric: str = "l2"):
     in the reference, whose signature this keeps."""
 
     def step(x, centroids):
+        qp, sn = mesh.shape[QUERY_AXIS], mesh.shape[SHARD_AXIS]
         first = mesh.first()
-        cents = centroids[0][0]
-        row_sums, row_counts = [], []
-        for i, row in enumerate(x):
-            sums, counts = [], []
-            for j, x_loc in enumerate(row):
-                s, c = _kmeans_partials(x_loc, centroids[i][j], k)
-                sums.append(s)
-                counts.append(c)
-            row_sums.append(psum(sums, mesh.first(i)))
-            row_counts.append(psum(counts, mesh.first(i)))
-        g_sums = psum(row_sums, first)
-        g_counts = psum(row_counts, first)
+        sums = [[None] * sn for _ in range(qp)]
+        counts = [[None] * sn for _ in range(qp)]
+        for i, j in mesh.cells:
+            sums[i][j], counts[i][j] = _kmeans_partials(x[i][j], centroids[i][j], k)
+        sums, counts = all_gather_cells(mesh, sums), all_gather_cells(mesh, counts)
+        g_sums = psum([psum(sums[i], mesh.first(i)) for i in range(qp)], first)
+        g_counts = psum([psum(counts[i], mesh.first(i)) for i in range(qp)], first)
         new = g_sums / torch.clamp(g_counts[:, None], min=1.0)
-        new = torch.where((g_counts > 0)[:, None], new, cents.to(first))
+        new = torch.where((g_counts > 0)[:, None], new, first_owned(centroids).to(first))
         return replicate(mesh, new), replicate(mesh, g_counts)
 
     return step

@@ -721,11 +721,12 @@ class Table:
         table's device type: every card for a CUDA table, one ``cpu`` for
         a table on the CPU. Writes drop the sharded searchers with the
         others, so a rebuilt index is dealt anew."""
-        from .parallel.mesh import make_mesh
+        from .parallel.mesh import make_mesh, one_process_only
 
         dev = self._device
         if mesh is None:
             mesh = make_mesh(devices=None if dev.type == "cuda" else [dev])
+        one_process_only(mesh, "sharded serving runs")
         kinds = {d.type for d in mesh.devices.flat}
         if kinds != {dev.type}:
             raise InvalidInputError(

@@ -164,6 +164,27 @@ assert scannable.to_scannable({"a": [1, 2]}).num_rows == 2
 assert any(c["name"] == "lancedb.queries" for c in metrics.snapshot_metrics()["counters"])
 v, i = blocked_topk_scan(lambda b: (torch.arange(4.0).repeat(2, 1), torch.arange(4)), 2, 3, 2)
 assert i.tolist() == [[0, 0, 1]] * 2
+# several processes: the dryrun's two ranks over gloo, each child with jax
+# and the reference made unimportable as here
+import subprocess
+from lancedb_tpu_torch.parallel import distributed, dryrun_two_process
+child = ("import sys; sys.modules['jax'] = None; sys.modules['lancedb_tpu'] = None; "
+         "from lancedb_tpu_torch.parallel.dryrun_two_process import main; "
+         "sys.exit(main(sys.argv[1:]))")
+port = distributed.free_port()
+kids = [subprocess.Popen([sys.executable, "-c", child, "--child", str(r), "--coordinator",
+                          f"127.0.0.1:{port}", "--device", "cpu", "--timeout", "60"],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+try:
+    outs = [k.communicate(timeout=120)[0] for k in kids]
+finally:
+    for k in kids:
+        k.kill()
+        k.wait(timeout=30)
+assert all(k.returncode == 0 for k in kids), outs
+assert "TWO_PROCESS_DRYRUN OK workers=2 rows=512" in outs[0], outs
+assert all("jax or lancedb_tpu in sys.modules: none" in o for o in outs), outs
 assert not any(m == "jax" or m.startswith(("jax.", "lancedb_tpu."))
                for m, mod in sys.modules.items() if mod is not None)
 print("ok")
