@@ -11,7 +11,8 @@
                                           # path j; --phase sql: path k;
                                           # --phase remote: path a's table
                                           # and 8-bit index, then path l;
-                                          # --phase multiprocess: path m)
+                                          # --phase multiprocess: path m;
+                                          # --phase scale: path n)
     python3 chip_smoke.py --out smoke.json # also write the full summary as JSON
 
 Phases:
@@ -107,6 +108,9 @@ Phases:
      version on the searcher's inputs; the residual-free encode held to
      the buffered one on a 65,536-row slice. Recall bars: the
      reference's (BASELINE.md:87-88) less 0.03, refined at least 0.95.
+     A host thread draws the second config's data while the card works
+     on the first (in the whole run it draws both, then path i's rows,
+     from the start of path d on).
   6. path f, full text and hybrid (bench.py:1296 run_fts_hybrid_config,
      BASELINE config #5 on one card), after asserting that the native
      library (native/lancedb_native.cpp, built with g++) loaded:
@@ -251,6 +255,20 @@ Phases:
      plain bf16 brute force's less 0.01; seconds, peak memory and rows/s
      of each rank printed. The card never holds both copies: the one
      process's run ends before the ranks start.
+  14. path n, the one-card capacity point (--phase scale only):
+     lancedb_tpu_torch.probes.probe_scale_30m, the port of
+     scripts/probe_scale_30m.py, in a temporary directory deleted after:
+     30,000,000 x 128 rows drawn as the script draws them, a 1,000,000-row
+     chunk at a time through create_table / add (the exact f32 truth on
+     the card fed the same chunks, TF32 off), create_index(IVF_PQ 4096
+     partitions, 8-bit x16) in the build's residual-free mode with its peak
+     device memory, and the script's 32 queries at nprobes 20 raw and with
+     refine_factor(10) through the fused f16 refine table, by to_arrow()
+     and by VectorSearcher.search, each the median of 8 after one warm
+     call, B1's launches counted from 0 around each call (> 0). Recall@10
+     at least the reference's less 0.03 (raw 0.17, refined 0.4325); B1
+     held to its plain version on the searcher's inputs for the 32 queries
+     and timed. It needs about 17 GB of disk and 70 GB of host memory.
 
 Prints, on lines before the last, the card's name and power limit, a
 ``kernels:`` line and one JSON object ``{"kernels": [...]}``; the last
@@ -328,6 +346,21 @@ def large_d_data(cfg: dict, n_queries: int = 32):
         q /= np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-30)
     cats = rng.integers(0, 10, cfg["n"]) if cfg["prefilter"] else None
     return x, q, cats
+
+
+def timed_result(fn, *args):
+    """(fn(*args), its seconds on the host clock)."""
+    t0 = time.perf_counter()
+    return fn(*args), time.perf_counter() - t0
+
+
+def draws_ahead(pool) -> tuple[dict, object]:
+    """Submit path d's and path i's data draws to ``pool``, a host thread
+    that draws them in turn while the card works on what comes before
+    them (numpy's draws release the interpreter lock): ({tag: future},
+    path i's future), each future of (data, seconds)."""
+    large_d = {tag: pool.submit(timed_result, large_d_data, cfg) for tag, cfg in LARGE_D.items()}
+    return large_d, pool.submit(timed_result, mesh_data)
 
 
 # the reference's raw / refined recall@10 (BASELINE.md:87-88) less 0.03,
@@ -1026,7 +1059,7 @@ def encode_check(searcher, x_slice: np.ndarray, nsub: int, kcode: int) -> dict:
     return rec
 
 
-def large_d_config(tag: str, cfg: dict, card: str) -> tuple[dict, dict]:
+def large_d_config(tag: str, cfg: dict, card: str, data) -> tuple[dict, dict]:
     """One BASELINE large-D config through connect() → create_table →
     create_index(IvfPq) → search at nprobes 20, raw and with
     refine_factor(10) (the fused refine), and for #4 with where("cat = 3"),
@@ -1034,7 +1067,8 @@ def large_d_config(tag: str, cfg: dict, card: str) -> tuple[dict, dict]:
     rows and queries normalized for cosine, cat drawn after them). Records
     the capacity mode, build seconds, peak device memory, recall against
     exact f32 truth on the card, B1 against its plain version on the
-    searcher's inputs, and the residual-free encode on a slice."""
+    searcher's inputs, and the residual-free encode on a slice. ``data``
+    is the future of ``timed_result(large_d_data, cfg)``."""
     import pyarrow as pa
     import torch
 
@@ -1042,11 +1076,11 @@ def large_d_config(tag: str, cfg: dict, card: str) -> tuple[dict, dict]:
     from lancedb_tpu_torch.index import IvfPq
     from lancedb_tpu_torch.ops import adc
 
-    k, nq = 10, 32
+    k = 10
     n, d = cfg["n"], cfg["d"]
-    t0 = time.perf_counter()
-    x, q, cats = large_d_data(cfg, nq)
-    rec: dict = {"rows": n, "dim": d, "queries": nq, "data_s": time.perf_counter() - t0}
+    (x, q, cats), data_s = data.result()
+    nq = len(q)
+    rec: dict = {"rows": n, "dim": d, "queries": nq, "data_s": data_s}
     x_d = torch.from_numpy(x).cuda()
     xn2_d = torch.sum(x_d * x_d, dim=1)
     gt = exact_gt(x_d, xn2_d, q, k)  # unit rows for cosine: l2 ranks as cosine
@@ -1126,12 +1160,20 @@ def large_d_config(tag: str, cfg: dict, card: str) -> tuple[dict, dict]:
     return rec, krec
 
 
-def large_d_path(card: str) -> tuple[dict, list[dict]]:
-    """Path d: BASELINE configs #3 and #4, each on its own database."""
+def large_d_path(card: str, data: dict | None = None) -> tuple[dict, list[dict]]:
+    """Path d: BASELINE configs #3 and #4, each on its own database.
+    ``data``: each config's future from ``draws_ahead``; without it the
+    second config's data is drawn while the card works on the first."""
+    from concurrent.futures import ThreadPoolExecutor
+
     results, kernels = {}, []
-    for tag, cfg in LARGE_D.items():
-        results[tag], krec = large_d_config(tag, cfg, card)
-        kernels.append(krec)
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        if data is None:
+            data = {tag: pool.submit(timed_result, large_d_data, cfg)
+                    for tag, cfg in LARGE_D.items()}
+        for tag, cfg in LARGE_D.items():
+            results[tag], krec = large_d_config(tag, cfg, card, data[tag])
+            kernels.append(krec)
     return results, kernels
 
 
@@ -1533,14 +1575,18 @@ def kernel_phases(phase: str, card: str) -> tuple[dict, list[dict]]:
     flat_line = [r for r in flat_checks if r["metric"] == "l2"] + [plan_line]
     kernels = synthetic + grouped + flat_line
     if phase == "all":
+        from concurrent.futures import ThreadPoolExecutor
+
         results, main_kernels = main_path(card)
         summary["main_path"] = results
         summary["probes"] = probes_phase(card)
-        summary["large_d"], large_d_kernels = large_d_path(card)
-        summary["fts"], fts_kernels = fts_phase(card)
-        summary["sql"], _ = sql_phase(card)  # host SQL: no kernel
-        summary["lifecycle"], lifecycle_kernels = lifecycle_phase(card)
-        summary["mesh"], mesh_kernels = mesh_phase(card)
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            large_d_data_ahead, mesh_data_ahead = draws_ahead(pool)
+            summary["large_d"], large_d_kernels = large_d_path(card, large_d_data_ahead)
+            summary["fts"], fts_kernels = fts_phase(card)
+            summary["sql"], _ = sql_phase(card)  # host SQL: no kernel
+            summary["lifecycle"], lifecycle_kernels = lifecycle_phase(card)
+            summary["mesh"], mesh_kernels = mesh_phase(card, mesh_data_ahead)
         summary["two_process"] = two_process_leg(card)
         counts: dict = {}  # launches on the main path, per kernel
         for r in main_kernels:
@@ -2828,7 +2874,14 @@ def feed_path(tbl, mesh, label: str, card: str) -> dict:
     return rec
 
 
-def mesh_path(card: str) -> tuple[dict, dict]:
+def mesh_data():
+    """Path i's rows and queries: make_clustered, seed 0."""
+    from lancedb_tpu_torch.probes.common import make_clustered
+
+    return make_clustered(np.random.default_rng(0), MESH_ROWS, MESH_DIM, n_queries=MESH_QUERIES)
+
+
+def mesh_path(card: str, data=None) -> tuple[dict, dict]:
     """Path i: config #5's sharded IVF_PQ at DEEP's widths, served through
     enable_sharded_serving on a 1-shard and a 4-shard mesh of the one card,
     the distributed build, sharded FLAT and IVF_FLAT search, B1 on one
@@ -2848,16 +2901,13 @@ def mesh_path(card: str) -> tuple[dict, dict]:
     from lancedb_tpu_torch.parallel import (ShardedFlatIndex, ShardedIvfPqIndex,
                                             distributed_kmeans, make_mesh,
                                             make_sharded_ivf_search, replicate, shard_rows)
-    from lancedb_tpu_torch.probes.common import make_clustered
     from lancedb_tpu_torch.query import _deleted_rowids
     from lancedb_tpu_torch.session import _searcher_nbytes
 
     n, dim, nq, k = MESH_ROWS, MESH_DIM, MESH_QUERIES, 10
     rec: dict = {"card": card, "rows": n, "dim": dim, "queries": nq}
-    t0 = time.perf_counter()
-    x, queries = make_clustered(np.random.default_rng(0), n, dim, n_queries=nq)
+    (x, queries), rec["data_s"] = data.result() if data is not None else timed_result(mesh_data)
     ids = np.arange(n, dtype=np.int64)
-    rec["data_s"] = time.perf_counter() - t0
     x_d = torch.from_numpy(x).to(MESH_DEVICE)
     cat3_d = torch.from_numpy(ids % 10 == 3).to(MESH_DEVICE)
     gt = exact_topk_chunked(x_d, queries, k)
@@ -3054,9 +3104,9 @@ def mesh_path(card: str) -> tuple[dict, dict]:
     return rec, krec
 
 
-def mesh_phase(card: str) -> tuple[dict, list[dict]]:
-    """Path i alone."""
-    results, krec = mesh_path(card)
+def mesh_phase(card: str, data=None) -> tuple[dict, list[dict]]:
+    """Path i (``data``: its future from ``draws_ahead``)."""
+    results, krec = mesh_path(card, data)
     print(f"card: {card}", flush=True)
     return results, [krec]
 
@@ -4232,15 +4282,70 @@ def remote_phase(card: str) -> tuple[dict, list[dict]]:
     return results, [krec]
 
 
+# ---------------------------------------------------------------- path n
+# the reference's one-card capacity point (scripts/probe_scale_30m.py):
+# 30,000,000 x 128 rows, IVF_PQ 4096 partitions 8-bit x16, nprobes 20, built
+# and searched through probes.probe_scale_30m. The bars are the
+# reference's recall@10 on the script's 32 queries (SCALE_PROOF.json: raw
+# 0.2, refine_factor 10 0.4625; recall does not depend on the hardware)
+# less 0.03
+SCALE_BARS = {"raw": 0.2 - 0.03, "refine10": 0.4625 - 0.03}
+
+
+def scale_phase(card: str) -> tuple[dict, list[dict]]:
+    """Path n alone: the probe at full size in a temporary directory,
+    deleted after; its modes, recall bars and B1's launches checked; B1
+    held to its plain version on the inputs the searcher gives it for the
+    32 queries. Returns (the probe's record, B1's record)."""
+    import shutil
+
+    import torch
+
+    import lancedb_tpu_torch
+    from lancedb_tpu_torch.probes import probe_scale_30m as probe
+    from lancedb_tpu_torch.probes.probe_pq_real import grouped_inputs
+
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="scale30m-"))
+    try:
+        rec = probe.run(workdir=work)
+        if rec["build_mode"] != "res_free":
+            raise AssertionError(f"path n: build mode {rec['build_mode']}, not res_free")
+        if rec["refine_mode"] != "fused_device_float16":
+            raise AssertionError(f"path n: refine {rec['refine_mode']}, not the fused f16 table")
+        launches = 0
+        for tag, bar in SCALE_BARS.items():
+            for level in ("table", "searcher"):
+                res = rec[f"{level}_{tag}"]
+                if res["recall@10"] < bar:
+                    raise AssertionError(f"path n {level} {tag}: recall@10 {res} < {bar}")
+                if min(res["b1_launches"]) <= 0:
+                    raise AssertionError(f"path n {level} {tag}: a search launched no B1: {res}")
+                launches += sum(res["b1_launches"])
+        tbl = lancedb_tpu_torch.connect(str(work / "db")).open_table("data")
+        meta = next(ix for ix in tbl._dataset.manifest.indices if ix.name == probe.INDEX_NAME)
+        q = torch.from_numpy(np.load(work / "queries.npy")).cuda()
+        args = grouped_inputs(tbl._get_searcher(meta), q, probe.NPROBES)
+        krec = check_adc(args, f"path n, {probe.N:,} x {probe.D}, {probe.NQ} queries")
+        krec["launches"] = launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t0
+    print(f"[scale] ({card}): build peak {rec['build_peak_bytes']:,} bytes of device memory, "
+          f"phase {rec['phase_s']:.1f} s, B1 {launches} launches", flush=True)
+    return rec, [krec]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase",
                     choices=("all", "kernels", "large_d", "hnsw", "fts", "vector_family",
                              "lifecycle", "mesh", "table_surface", "sql", "remote",
-                             "multiprocess"),
+                             "multiprocess", "scale"),
                     default="all", help="kernels: the kernel checks only; large_d, hnsw, fts, "
-                    "vector_family, lifecycle, mesh, table_surface, sql, remote, multiprocess: "
-                    "that path only")
+                    "vector_family, lifecycle, mesh, table_surface, sql, remote, multiprocess, "
+                    "scale: that path only (scale: the 30M x 128 capacity point, about 17 GB "
+                    "of disk under the temporary directory and 70 GB of host memory)")
     ap.add_argument("--out", help="also write the full summary as JSON to this file")
     # one rank of path m, started by --phase multiprocess
     ap.add_argument("--mp-child", type=int, help=argparse.SUPPRESS)
@@ -4278,13 +4383,15 @@ def main() -> int:
     summary: dict = {}
     kernels: list[dict] = []
     if a.phase in ("large_d", "hnsw", "fts", "vector_family", "lifecycle", "mesh",
-                   "table_surface", "sql", "remote", "multiprocess"):
+                   "table_surface", "sql", "remote", "multiprocess", "scale"):
         if a.phase == "large_d":
             summary["large_d"], kernels = large_d_path(card)
         elif a.phase == "mesh":
             summary["mesh"], kernels = mesh_phase(card)
         elif a.phase == "multiprocess":
             summary["multiprocess"], kernels = multiprocess_phase(card)
+        elif a.phase == "scale":
+            summary["scale"], kernels = scale_phase(card)
         elif a.phase == "lifecycle":
             summary["lifecycle"], kernels = lifecycle_phase(card)
         elif a.phase == "table_surface":

@@ -81,6 +81,8 @@ _INVALID_ROWID = np.uint64(np.iinfo(np.uint64).max)
 
 # queries per scan: bounds the (Q, nprobes, pmax) distance transient
 _Q_CHUNK = 128
+# rows per host block of the fused refine's table upload
+_REFINE_BLOCK_ROWS = 1 << 20
 
 # IVF_PQ build capacity modes, at the reference's thresholds (bytes of the
 # f32 table, n·d·4): bf16 residuals in a bf16 build above the first; above
@@ -951,9 +953,13 @@ class VectorSearcher:
         in ``mat`` and ``found[i]`` whether that row id still exists."""
         tbl = dataset.to_table(columns=[column], with_row_id=True)
         rid = tbl.column("_rowid").to_numpy().astype(np.uint64)
-        mat = fsl_to_numpy(tbl.column(column)).astype(np.float32)
-        order = np.argsort(rid)
-        rid, mat = rid[order], mat[order]
+        mat = fsl_to_numpy(tbl.column(column))  # f32, maybe a read-only view
+        del tbl
+        # a scan yields the fragments in id order, so the rows are sorted
+        # unless a compaction renumbered them: no second copy of the column
+        if np.any(rid[1:] < rid[:-1]):
+            order = np.argsort(rid)
+            rid, mat = rid[order], mat[order]
         if metric == "cosine":
             mat = mat / np.maximum(np.linalg.norm(mat, axis=1, keepdims=True), 1e-30)
         slot_row_ids = np.asarray(slot_row_ids, dtype=np.uint64)
@@ -1022,23 +1028,34 @@ class VectorSearcher:
         slotmap = np.where(found & self.row_ids_valid, pos, 0).astype(np.int64)
         if mat.shape[0] == 0:
             return False
-        self._refine_residual = False
-        if dtype != torch.float32:
+        self._refine_residual = dtype != torch.float32
+        if self._refine_residual:
             cents = self._device["centroids"].cpu().numpy()
             part_of_slot = (np.arange(self.num_slots, dtype=np.int64) // self.pmax).astype(np.int32)
             valid = found & self.row_ids_valid
             part_of_row = np.zeros(mat.shape[0], np.int32)
             part_of_row[pos[valid]] = part_of_slot[valid]
-            mat = mat - cents[part_of_row]
-            self._refine_residual = True
+        with_norms = self.metric not in ("dot", "cosine")
+        vecs = torch.empty(mat.shape, dtype=dtype, device=self.device)
+        norms2 = np.empty(mat.shape[0], np.float32)
+        # a block of rows at a time: the host holds the column once, not
+        # its residuals and their f64 squares beside it (at 30M x 128 the
+        # whole-column temporaries would pass 100 GB)
+        for s in range(0, mat.shape[0], _REFINE_BLOCK_ROWS):
+            blk = orig = mat[s : s + _REFINE_BLOCK_ROWS]
+            if self._refine_residual:
+                c = cents[part_of_row[s : s + _REFINE_BLOCK_ROWS]]
+                blk = blk - c
+                orig = blk + c  # the norms of the rows the residuals rebuild
+            vecs[s : s + blk.shape[0]] = _to_device(blk, self.device, dtype)
+            if with_norms:
+                # exact f32 norms of the ORIGINAL rows
+                norms2[s : s + blk.shape[0]] = np.sum(
+                    orig.astype(np.float64) ** 2, axis=1).astype(np.float32)
         self._device["refine_slotmap"] = _to_device(slotmap, self.device)
-        self._device["refine_vecs"] = _to_device(mat, self.device, dtype)
-        if self.metric not in ("dot", "cosine"):
-            # exact f32 norms of the ORIGINAL rows
-            orig = mat + cents[part_of_row] if self._refine_residual else mat
-            self._device["refine_norms2"] = _to_device(
-                np.sum(orig.astype(np.float64) ** 2, axis=1).astype(np.float32), self.device
-            )
+        self._device["refine_vecs"] = vecs
+        if with_norms:
+            self._device["refine_norms2"] = _to_device(norms2, self.device)
         return True
 
     # ---- search --------------------------------------------------------

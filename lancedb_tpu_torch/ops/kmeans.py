@@ -25,6 +25,10 @@ from .util import lowp, resolve_device
 
 # Gumbel noise elements drawn per block of k-means++ steps
 _GUMBEL_BLOCK = 1 << 22
+# bytes of one (B, rows, K) f32 distance product of a Lloyd assignment: a
+# larger sample is assigned a chunk of rows at a time (at 4096 partitions
+# the 1,048,576-row sample's product is 17.2 GB)
+ASSIGN_PRODUCT_BYTES = 1 << 31
 
 
 def _normalize_rows(x: torch.Tensor) -> torch.Tensor:
@@ -39,8 +43,22 @@ def _assign(x_lp: torch.Tensor, x_n2: torch.Tensor, cents: torch.Tensor, metric:
         # spherical: centroids renormalized each iteration → argmax dot
         return torch.argmax(dots, dim=-1)
     cn2 = torch.sum(torch.square(cents), dim=-1)  # (B, K)
-    d = x_n2[:, :, None] - 2.0 * dots + cn2[:, None, :]
+    # x_n2 - 2·dots + cn2 in place, the same bits (a - b == a + (-b), and
+    # the ×(-2) is exact): one (B, N, K) array instead of three
+    d = dots.mul_(-2.0).add_(x_n2[:, :, None]).add_(cn2[:, None, :])
     return torch.argmin(d, dim=-1)
+
+
+def _assign_chunked(x_lp: torch.Tensor, x_n2: torch.Tensor, cents: torch.Tensor,
+                    metric: str) -> torch.Tensor:
+    """``_assign`` over chunks of rows whose (B, rows, K) f32 product stays
+    within ASSIGN_PRODUCT_BYTES; a sample that fits is one call."""
+    b, n, _ = x_lp.shape
+    rows = max(1, ASSIGN_PRODUCT_BYTES // (4 * b * cents.shape[1]))
+    if n <= rows:
+        return _assign(x_lp, x_n2, cents, metric)
+    return torch.cat([_assign(x_lp[:, s : s + rows], x_n2[:, s : s + rows], cents, metric)
+                      for s in range(0, n, rows)], dim=1)
 
 
 def _sum_rows(out: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> None:
@@ -81,7 +99,9 @@ def kmeans_fit_device(
     The reference runs all ``max_iters`` steps under ``lax.scan`` and
     freezes a converged batch member; here the loop freezes the same way
     and stops once every member has converged, which gives the same
-    centroids."""
+    centroids. The assignments are formed a chunk of rows at a time
+    (``_assign_chunked``), so the distance transient stays bounded at
+    any sample size."""
     batched = x.dim() == 3
     if not batched:
         x, init_centroids = x[None], init_centroids[None]
@@ -99,7 +119,7 @@ def kmeans_fit_device(
     cents = renorm(init_centroids.float())
     done = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
     for it in range(max_iters):
-        assign = _assign(x_lp, x_n2, cents, metric)
+        assign = _assign_chunked(x_lp, x_n2, cents, metric)
         sums, counts = _update(x_lp, assign, k)
         new = sums / torch.clamp(counts[:, :, None], min=1.0)
         reseed = xf[:, reseed_rows[it]]  # (B, K, D)
@@ -109,7 +129,7 @@ def kmeans_fit_device(
         done = done | (shift < tol)
         if bool(done.all()):
             break
-    final_assign = _assign(x_lp, x_n2, cents, metric).to(torch.int32)
+    final_assign = _assign_chunked(x_lp, x_n2, cents, metric).to(torch.int32)
     if not batched:
         return cents[0], final_assign[0]
     return cents, final_assign

@@ -59,7 +59,8 @@ def _code_search(xs: torch.Tensor, cb_lp: torch.Tensor, cn2: torch.Tensor) -> to
     """Nearest codes of (c, S, dsub) subvectors → (c, S) int64; |x|² is
     constant per row, so argmin(|c|² − 2 x·c) picks the nearest."""
     dots = torch.einsum("csd,skd->csk", lowp(xs), cb_lp)
-    return torch.argmin(cn2[None] - 2.0 * dots, dim=-1)
+    # cn2 - 2·dots in place, the same bits: one (c, S, K) array, not three
+    return torch.argmin(dots.mul_(-2.0).add_(cn2[None]), dim=-1)
 
 
 def pq_train(
