@@ -12,7 +12,8 @@
                                           # --phase remote: path a's table
                                           # and 8-bit index, then path l;
                                           # --phase multiprocess: path m;
-                                          # --phase scale: path n)
+                                          # --phase scale: path n;
+                                          # --phase deep100m: path o)
     python3 chip_smoke.py --out smoke.json # also write the full summary as JSON
 
 Phases:
@@ -268,7 +269,27 @@ Phases:
      call, B1's launches counted from 0 around each call (> 0). Recall@10
      at least the reference's less 0.03 (raw 0.17, refined 0.4325); B1
      held to its plain version on the searcher's inputs for the 32 queries
-     and timed. It needs about 17 GB of disk and 70 GB of host memory.
+     and timed. It needs about 17 GB of disk; the host's anonymous-memory
+     peak (RssAnon, or VmData where the kernel lacks it) is printed and
+     held to 24 GB.
+  15. path o, BASELINE config #5 at its published scale (--phase deep100m
+     only): lancedb_tpu_torch.probes.probe_deep100m in a temporary
+     directory deleted after: 100,000,000 x 96 seeded clustered rows
+     (DEEP's width) drawn on the card a 1,000,000-row chunk at a time, fed
+     to three exact f32 truths there (all rows, category = 3, id % 1000 !=
+     0) and appended through create_table / add; create_index(IVF_PQ 4096
+     partitions, 8-bit x12) in the residual-free mode; 256-query batches at
+     nprobes 20 on one device (raw, refine_factor(10) through the fused
+     f16 table, category = 3, then delete("id % 1000 = 0") and raw again)
+     and through enable_sharded_serving on cuda:0 x 4 (raw, refined
+     through the sharded f16 table, filtered), each the median of 3 after
+     a warm call with B1's launches counted from 0; the probe's bars
+     (refined at least raw, the mesh's recall at least one device's less
+     0.01 with 4x its launches, filtered hits in category 3, no deleted
+     id, device memory released after the mesh, the host's anonymous-memory
+     peak at most 24 GB) raise inside it. B1 held to its plain version on the
+     one-device searcher's inputs for 128 queries and timed. It needs
+     about 45 GB of disk.
 
 Prints, on lines before the last, the card's name and power limit, a
 ``kernels:`` line and one JSON object ``{"kernels": [...]}``; the last
@@ -4313,6 +4334,10 @@ def scale_phase(card: str) -> tuple[dict, list[dict]]:
             raise AssertionError(f"path n: build mode {rec['build_mode']}, not res_free")
         if rec["refine_mode"] != "fused_device_float16":
             raise AssertionError(f"path n: refine {rec['refine_mode']}, not the fused f16 table")
+        if rec["host_anon_peak_bytes"] > probe.HOST_ANON_BAR:
+            raise AssertionError(f"path n: host {rec['host_anon_source']} peak "
+                                 f"{rec['host_anon_peak_bytes']:,} > "
+                                 f"{probe.HOST_ANON_BAR:,} bytes")
         launches = 0
         for tag, bar in SCALE_BARS.items():
             for level in ("table", "searcher"):
@@ -4332,8 +4357,52 @@ def scale_phase(card: str) -> tuple[dict, list[dict]]:
         shutil.rmtree(work, ignore_errors=True)
     rec["phase_s"] = time.perf_counter() - t0
     print(f"[scale] ({card}): build peak {rec['build_peak_bytes']:,} bytes of device memory, "
-          f"phase {rec['phase_s']:.1f} s, B1 {launches} launches", flush=True)
+          f"host {rec['host_anon_source']} peak {rec['host_anon_peak_bytes']:,} bytes, phase "
+          f"{rec['phase_s']:.1f} s, B1 {launches} launches", flush=True)
     return rec, [krec]
+
+
+# ---------------------------------------------------------------- path o
+# BASELINE config #5 at its published scale: DEEP's 100M subset at 96-d
+# (big-ann-benchmarks), 100,000,000 x 96 seeded clustered rows in place of
+# the DEEP files, IVF_PQ 4096 partitions 8-bit x12, nprobes 20, built and
+# served through probes.probe_deep100m on one device and on a 4-shard
+# mesh of it. The reference records no run at 100M: the exact truth holds
+# the recall and one device holds the mesh (path i's bar).
+
+
+def deep100m_phase(card: str) -> tuple[dict, list[dict]]:
+    """Path o alone: the probe at full size in a temporary directory,
+    deleted after (its bars raise inside it); B1 held to its plain
+    version on the one-device searcher's inputs for 128 queries. Returns
+    (the probe's record without its arrays, B1's record)."""
+    import shutil
+
+    import lancedb_tpu_torch
+    from lancedb_tpu_torch.probes import probe_deep100m as probe
+
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="deep100m-"))
+    try:
+        rec = probe.run(workdir=work)
+        tbl = lancedb_tpu_torch.connect(str(work / "db")).open_table("deep")
+        searcher = tbl._get_searcher(tbl._dataset.manifest.indices[0])
+        krec = check_adc(b1_args(searcher, rec["queries"], probe.NPROBES),
+                         f"path o, {probe.N:,} x {probe.D}, 128 queries")
+        del searcher, tbl
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = sum(r["b1_launches"] for level in ("single", "mesh4") for r in rec[level].values())
+    krec["launches"] = launches
+    out = {k: v for k, v in rec.items() if k not in ("single", "mesh4", "queries", "truths")}
+    out["single"], out["mesh4"] = probe.public(rec["single"]), probe.public(rec["mesh4"])
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[deep100m] ({card}): phase {out['phase_s']:.1f} s, build peak "
+          f"{out['build_peak_bytes']:,} bytes, mesh peak {out['mesh_peak_bytes']:,} bytes of "
+          f"device memory, host {out['host_anon_source']} peak "
+          f"{out['host_anon_peak_bytes']:,} bytes, B1 "
+          f"{launches} launches", flush=True)
+    return out, [krec]
 
 
 def main() -> int:
@@ -4341,11 +4410,12 @@ def main() -> int:
     ap.add_argument("--phase",
                     choices=("all", "kernels", "large_d", "hnsw", "fts", "vector_family",
                              "lifecycle", "mesh", "table_surface", "sql", "remote",
-                             "multiprocess", "scale"),
+                             "multiprocess", "scale", "deep100m"),
                     default="all", help="kernels: the kernel checks only; large_d, hnsw, fts, "
                     "vector_family, lifecycle, mesh, table_surface, sql, remote, multiprocess, "
-                    "scale: that path only (scale: the 30M x 128 capacity point, about 17 GB "
-                    "of disk under the temporary directory and 70 GB of host memory)")
+                    "scale, deep100m: that path only (scale: the 30M x 128 capacity point, "
+                    "about 17 GB of disk under the temporary directory; deep100m: config #5 "
+                    "at 100M x 96, about 45 GB)")
     ap.add_argument("--out", help="also write the full summary as JSON to this file")
     # one rank of path m, started by --phase multiprocess
     ap.add_argument("--mp-child", type=int, help=argparse.SUPPRESS)
@@ -4383,7 +4453,7 @@ def main() -> int:
     summary: dict = {}
     kernels: list[dict] = []
     if a.phase in ("large_d", "hnsw", "fts", "vector_family", "lifecycle", "mesh",
-                   "table_surface", "sql", "remote", "multiprocess", "scale"):
+                   "table_surface", "sql", "remote", "multiprocess", "scale", "deep100m"):
         if a.phase == "large_d":
             summary["large_d"], kernels = large_d_path(card)
         elif a.phase == "mesh":
@@ -4392,6 +4462,8 @@ def main() -> int:
             summary["multiprocess"], kernels = multiprocess_phase(card)
         elif a.phase == "scale":
             summary["scale"], kernels = scale_phase(card)
+        elif a.phase == "deep100m":
+            summary["deep100m"], kernels = deep100m_phase(card)
         elif a.phase == "lifecycle":
             summary["lifecycle"], kernels = lifecycle_phase(card)
         elif a.phase == "table_surface":

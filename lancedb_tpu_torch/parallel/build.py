@@ -47,8 +47,8 @@ from ..ops.kmeans import assign_residuals_device
 from ..ops.pq import default_num_sub_vectors, pq_encode_rnorms, pq_train
 from ..ops.topk import topk_smallest
 from ..ops.util import cdiv, matmul_dtype, round_up
-from .mesh import (QUERY_AXIS, SHARD_AXIS, _as_tensor, _to, all_gather_cat, first_owned,
-                   one_process_only, replicate, shard_rows)
+from .mesh import (QUERY_AXIS, SHARD_AXIS, _as_tensor, _owned_grid, _to, all_gather_cat,
+                   first_owned, one_process_only, replicate, shard_rows)
 from .search import PAD, make_distributed_kmeans_step
 
 # centroid magnitude for never-probed dummy blocks (|c|² ≈ 1e30 keeps
@@ -296,6 +296,58 @@ class ShardedIvfPqIndex:
             self.mesh,
             np.asarray(norms2_slot, np.float32).reshape(self.nblocks, self.pmax)[self._deal],
         )
+
+    def fill_refine_table(self, dataset, column: str, dtype, residual: bool = False) -> None:
+        """Shard the refine table ``attach_refine_table`` takes, filled on
+        each shard's device from ``column`` streamed a block of rows at a
+        time: the same values (each slot's row, unit norm for cosine, zeros
+        on padding and dead slots, or with ``residual`` the row less its
+        slot's block centroid, in ``dtype``; f32 norms of the original
+        rows) in the same dealt order. A block finds its slots through the
+        slots sorted by row id (8 bytes a slot on the host); the host never
+        holds the (num_slots, D) table, which at 100M x 96 is 59 GB of f32."""
+        from ..index.vector import _column_blocks, _scan_row_ids, _sq_norms
+
+        mesh = self.mesh
+        shard_n = mesh.shape[SHARD_AXIS]
+        pmax = self.pmax
+        local_slots = self.nblocks // shard_n * pmax
+        dim = int(self._centroids[0][0].shape[1])
+        devs = [mesh.devices[0, j] for j in range(shard_n)]
+        vecs = [torch.zeros((local_slots, dim), dtype=dtype, device=d) for d in devs]
+        norms2 = [torch.zeros(local_slots, dtype=torch.float32, device=d) for d in devs]
+        by_rid = np.argsort(self.row_ids)  # padding (2^64 - 1) sorts last
+        rid_sorted = self.row_ids[by_rid]
+        rid_scan, _ = _scan_row_ids(dataset)
+        first = mesh.first()
+        for start, blk in _column_blocks(dataset, column, self.metric, first):
+            rid = rid_scan[start : start + blk.shape[0]]
+            lo = np.searchsorted(rid_sorted, rid.min())
+            hi = np.searchsorted(rid_sorted, rid.max(), side="right")
+            cand_rid, cand_slot = rid_sorted[lo:hi], by_rid[lo:hi]
+            row_order = np.argsort(rid)
+            at = np.clip(np.searchsorted(rid, cand_rid, sorter=row_order), 0, len(rid) - 1)
+            rows = row_order[at]
+            hit = rid[rows] == cand_rid
+            rows, slots = rows[hit], cand_slot[hit]
+            block = slots // pmax
+            shard = block % shard_n
+            for j, dev in enumerate(devs):
+                mine = shard == j
+                if not mine.any():
+                    continue
+                x = blk[torch.from_numpy(rows[mine]).to(first)].to(dev)
+                local = (block[mine] // shard_n) * pmax + slots[mine] % pmax
+                at_j = torch.from_numpy(local).to(dev)
+                norms2[j][at_j] = _sq_norms(x)
+                if residual:
+                    x = x - self._centroids[0][j][torch.from_numpy(block[mine]).to(dev)]
+                vecs[j][at_j] = x.to(dtype)
+        self._refine_vecs = _owned_grid(
+            mesh, lambda i, j: _to(vecs[j].reshape(-1, pmax, dim), mesh.devices[i, j]))
+        self._refine_norms2 = _owned_grid(
+            mesh, lambda i, j: _to(norms2[j].reshape(-1, pmax), mesh.devices[i, j]))
+        self._refine_residual = residual
 
     @property
     def refine_attached(self) -> bool:

@@ -86,7 +86,6 @@ class ShardedServingSearcher:
         LANCEDB_TPU_DEVICE_REFINE_BUDGET bytes (6e9) per shard. (The
         reference's sharded table is ``matmul_dtype`` unless
         precision='float32': bf16 full vectors on its TPU.)"""
-        from ..index.vector import VectorSearcher
         from ..ops.util import matmul_dtype
         from .mesh import SHARD_AXIS
 
@@ -109,19 +108,10 @@ class ShardedServingSearcher:
         if sh.num_slots * dim * bytes_per > budget * max(1, sh.mesh.shape[SHARD_AXIS]):
             self._refine_unavailable = True
             return False
-        mat, pos, found = VectorSearcher.refine_column_slots(dataset, column, self.metric,
-                                                             sh.row_ids)
-        if mat.shape[0] == 0:
+        if dataset.count_rows() == 0:
             self._refine_unavailable = True
             return False
-        vecs_slot = np.where(found[:, None], mat[pos], 0.0).astype(np.float32)
-        norms2 = np.sum(vecs_slot.astype(np.float64) ** 2, axis=1).astype(np.float32)
-        residual = dtype == torch.float16
-        if residual:
-            cents = sh._centroids[0][0].cpu().numpy()
-            block_of_slot = np.arange(sh.num_slots) // sh.pmax
-            vecs_slot = np.where(found[:, None], vecs_slot - cents[block_of_slot], 0.0)
-        sh.attach_refine_table(vecs_slot, norms2, dtype=dtype, residual=residual)
+        sh.fill_refine_table(dataset, column, dtype, residual=dtype == torch.float16)
         return True
 
     def refine(self, dataset, column, queries, dists, row_ids, k):

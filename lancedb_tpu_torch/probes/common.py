@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import json
 import subprocess
+import threading
 
 import numpy as np
 import torch
@@ -15,20 +16,101 @@ SLEEP_CYCLES = 2_000_000  # device_ms's spin kernel before each call, about 1 ms
 FLUSH_BYTES = 128 << 20  # cuda_ms_cold's write before each call, above the card's 50 MB L2
 
 
-def make_clustered(rng, n, dim, n_coarse=4096, n_parents=65_536, n_queries=256):
-    """Hierarchical clustered data + queries near existing parents: the
-    generator of the reference's bench.py, so recall means the same."""
+def clustered_hierarchy(rng, dim, n_coarse=4096, n_parents=65_536):
+    """make_clustered's first draws: (the per-dimension spectrum, the
+    parents, each a coarse centre plus 0.45 x normal noise)."""
     spectrum = (np.arange(dim) + 1.0) ** -0.5
     spectrum = (spectrum / np.linalg.norm(spectrum) * np.sqrt(dim)).astype(np.float32)
     coarse = rng.standard_normal((n_coarse, dim)).astype(np.float32)
     parents = coarse[rng.integers(0, n_coarse, n_parents)] + 0.45 * rng.standard_normal(
         (n_parents, dim)
     ).astype(np.float32)
-    pa_ = rng.integers(0, n_parents, n)
-    x = (parents[pa_] + 0.18 * rng.standard_normal((n, dim)).astype(np.float32)) * spectrum
-    qp = rng.integers(0, n_parents, n_queries)
-    q = (parents[qp] + 0.18 * rng.standard_normal((n_queries, dim)).astype(np.float32)) * spectrum
+    return spectrum, parents
+
+
+def clustered_rows(rng, spectrum, parents, n):
+    """n rows near random parents (0.18 x normal noise), scaled by the spectrum."""
+    p = rng.integers(0, len(parents), n)
+    return (parents[p] + 0.18 * rng.standard_normal((n, len(spectrum))).astype(np.float32)
+            ) * spectrum
+
+
+def make_clustered(rng, n, dim, n_coarse=4096, n_parents=65_536, n_queries=256):
+    """Hierarchical clustered data + queries near existing parents: the
+    generator of the reference's bench.py, so recall means the same."""
+    spectrum, parents = clustered_hierarchy(rng, dim, n_coarse, n_parents)
+    x = clustered_rows(rng, spectrum, parents, n)
+    q = clustered_rows(rng, spectrum, parents, n_queries)
     return x.astype(np.float32), q.astype(np.float32)
+
+
+class HostAnonPeak:
+    """The peak of this process's anonymous memory, sampled by a thread
+    every ``period`` seconds while the ``with`` block runs: ``RssAnon``
+    of /proc/self/status where the kernel reports it (resident copies the
+    process made, not the pages of the memory-mapped files it reads),
+    else ``VmData`` (its private writable mappings, resident or not: an
+    upper bound of the same, on kernels such as gVisor's that report
+    neither ``RssAnon`` nor file pages apart). ``source`` names the field
+    read; ``rss_peak_bytes`` is ``VmRSS``'s peak beside it, which counts
+    the mapped files too."""
+
+    FIELDS = ("RssAnon", "VmData")
+
+    def __init__(self, period: float = 0.2):
+        self.period = period
+        self.peak_bytes = self.rss_peak_bytes = 0
+        self.source: str | None = None
+        self.stages: dict[str, int] = {}  # the peak between marks, by stage
+        self._since = 0
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    @staticmethod
+    def status() -> dict[str, int]:
+        """The byte counts of /proc/self/status."""
+        out = {}
+        with open("/proc/self/status") as f:
+            for line in f:
+                key, _, rest = line.partition(":")
+                parts = rest.split()
+                if len(parts) == 2 and parts[1] == "kB":
+                    out[key] = int(parts[0]) * 1024
+        return out
+
+    def _sample(self) -> None:
+        st = self.status()
+        with self._lock:
+            if self.source is None:
+                self.source = next((f for f in self.FIELDS if f in st), None)
+                if self.source is None:
+                    raise RuntimeError(f"/proc/self/status has none of {self.FIELDS}")
+            self._since = max(self._since, st[self.source])
+            self.peak_bytes = max(self.peak_bytes, st[self.source])
+            self.rss_peak_bytes = max(self.rss_peak_bytes, st.get("VmRSS", 0))
+
+    def mark(self, stage: str) -> None:
+        """Record the peak since the previous mark (or the start) as
+        ``stage``'s."""
+        self._sample()
+        with self._lock:
+            self.stages[stage], self._since = self._since, 0
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.period):
+            self._sample()
+
+    def __enter__(self) -> "HostAnonPeak":
+        self._sample()
+        self._thread = threading.Thread(target=self._run, daemon=True, name="host-anon")
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10.0)
+        self._sample()
 
 
 def require_cuda() -> torch.device:

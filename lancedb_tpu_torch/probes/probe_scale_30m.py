@@ -20,17 +20,20 @@ with ``setdefault``, as the script sets it).
 
 It prints and returns one record: data, append and build seconds, the
 build's mode, blocks and pmax, its peak device memory, the device memory
-with the index resident and with the refine table, the host's peak RSS,
-and recall@10, qps and B1's launches raw and refined, through the table
-API (``to_arrow()``, hydration included) and through
+with the index resident and with the refine table, the host's peak
+anonymous memory (``common.HostAnonPeak``, sampled every 0.2 s) and peak
+RSS (which also counts the table's memory-mapped fragments), and
+recall@10, qps and B1's launches raw and refined, through the table API
+(``to_arrow()``, hydration included) and through
 ``VectorSearcher.search`` alone, each a median of REPS host-clock times
 after one warm call. It never writes the reference's SCALE_PROOF.json.
 
 Standalone it works under ``.bench_cache/`` with the script's DONE-marker
 resume (a killed run does not generate the 15.4 GB table again); at 30M
-rows it needs about 17 GB of disk (checked before generating), and the
-host about 70 GB at its peak, while the build reads the column. Like
-every entry point of the port it runs on the card unless ``device="cpu"``.
+rows it needs about 17 GB of disk (checked before generating); the build
+and the refine table stream the column a block at a time, so the host
+never holds it whole. Like every entry point of the port it runs on the
+card unless ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ NPROBES, NQ, TOP_K, REFINE = 20, 32, 10, 10
 CH = 1_000_000  # rows a chunk: generated, appended and scanned for the truth at once
 N_CENTRES = 10_000
 REPS = 8  # timed calls of each search, after one warm call
+HOST_ANON_BAR = 24_000_000_000  # anonymous bytes: a quarter of the card machine's 101 GB
 INDEX_NAME = "scale_pq"
 REPO = Path(__file__).resolve().parents[2]
 
@@ -290,6 +294,7 @@ def run(n: int = N, ch: int = CH, device=None, workdir=None) -> dict:
     import lancedb_tpu_torch
 
     from ..ops.util import resolve_device
+    from .common import HostAnonPeak
 
     dev = resolve_device(device)
     workdir = Path(workdir) if workdir is not None else default_workdir(n)
@@ -299,22 +304,27 @@ def run(n: int = N, ch: int = CH, device=None, workdir=None) -> dict:
     rec: dict = {"device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
                  "n": n, "d": D, "npart": num_partitions(n), "nsub": NSUB, "nbits": NBITS,
                  "nprobes": NPROBES, "nq": NQ, "chunk_rows": ch}
-    if (workdir / "DATA_DONE").exists():
-        tbl = db.open_table("data")
-        rec.update(json.loads((workdir / "data.json").read_text()), data_cached=True)
-    else:
-        rec.update(make_table(db, n, ch, workdir, dev))
-        tbl = db.open_table("data")
-    q, gt = np.load(workdir / "queries.npy"), np.load(workdir / "gt.npy")
-    if any(ix.name == INDEX_NAME for ix in tbl._dataset.manifest.indices):
-        rec.update(json.loads((workdir / "build.json").read_text()), index_cached=True)
-    else:
-        rec.update(build_index(tbl, n, dev, workdir))
-    meta = next(ix for ix in tbl._dataset.manifest.indices if ix.name == INDEX_NAME)
-    ds = tbl._dataset
-    rec["build_mode"] = json.loads(
-        ds.store.read_bytes(f"{ds.index_dir(meta.uuid)}/meta.json"))["build_mode"]
-    rec.update(searches(tbl, q, gt, dev))
+    with HostAnonPeak() as anon:
+        if (workdir / "DATA_DONE").exists():
+            tbl = db.open_table("data")
+            rec.update(json.loads((workdir / "data.json").read_text()), data_cached=True)
+        else:
+            rec.update(make_table(db, n, ch, workdir, dev))
+            tbl = db.open_table("data")
+        q, gt = np.load(workdir / "queries.npy"), np.load(workdir / "gt.npy")
+        if any(ix.name == INDEX_NAME for ix in tbl._dataset.manifest.indices):
+            rec.update(json.loads((workdir / "build.json").read_text()), index_cached=True)
+        else:
+            rec.update(build_index(tbl, n, dev, workdir))
+        meta = next(ix for ix in tbl._dataset.manifest.indices if ix.name == INDEX_NAME)
+        ds = tbl._dataset
+        rec["build_mode"] = json.loads(
+            ds.store.read_bytes(f"{ds.index_dir(meta.uuid)}/meta.json"))["build_mode"]
+        rec.update(searches(tbl, q, gt, dev))
+    # the anonymous peak counts the copies the process made; VmRSS and
+    # ru_maxrss also the table's memory-mapped fragments it read
+    rec["host_anon_peak_bytes"] = anon.peak_bytes
+    rec["host_anon_source"], rec["host_vmrss_peak_bytes"] = anon.source, anon.rss_peak_bytes
     rec["host_peak_rss_bytes"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     rec["seconds"] = time.perf_counter() - t_start
     print(f"[probe_scale_30m] {json.dumps(rec)}", flush=True)

@@ -26,7 +26,7 @@ from lancedb_tpu_torch.ops.distance import hamming_distance
 from lancedb_tpu_torch.ops import ivf_pq_adc_grouped_scan
 from lancedb_tpu_torch.ops.probe_kernels import adc_sum, smem_gather
 from lancedb_tpu_torch.probes import ab_adc8, ab_gather_min, common, probe_adc_grouped, probe_pq_real
-from lancedb_tpu_torch.probes import probe_scale_30m
+from lancedb_tpu_torch.probes import probe_deep100m, probe_scale_30m
 from lancedb_tpu_torch import native, query_fts
 from lancedb_tpu_torch.filters import substrait
 from lancedb_tpu_torch.index import fts, scalar, tokenizer

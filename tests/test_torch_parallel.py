@@ -350,10 +350,14 @@ def test_owned_probes_beyond_the_budget_match_reference():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fused_refine_matches_reference(built, dtype):
     ref, port, rt, tt = _both_from(built("ref", "l2"), 3)
-    from lancedb_tpu_torch.index.vector import VectorSearcher
-
-    mat, pos, found = VectorSearcher.refine_column_slots(tt._dataset, "vector", "l2",
-                                                         port.row_ids)
+    # the slot-order table: each slot's row (by row id), zeros on padding
+    col = tt._dataset.to_table(columns=["vector"], with_row_id=True)
+    rid = col["_rowid"].to_numpy().astype(np.uint64)
+    order = np.argsort(rid)
+    rid = rid[order]
+    mat = np.asarray(col["vector"].combine_chunks().flatten()).reshape(len(rid), -1)[order]
+    pos = np.clip(np.searchsorted(rid, port.row_ids), 0, len(rid) - 1)
+    found = rid[pos] == port.row_ids
     vecs = np.where(found[:, None], mat[pos], 0.0).astype(np.float32)
     n2 = np.sum(vecs.astype(np.float64) ** 2, axis=1).astype(np.float32)
     ref.attach_refine_table(vecs, n2, dtype=getattr(jax.numpy, dtype))
