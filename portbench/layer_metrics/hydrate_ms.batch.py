@@ -1,0 +1,9 @@
+"""Host milliseconds a search call spends in ``Dataset.take_rows`` (the
+hydration of the result rows), summed a call, mean over the window;
+moves setup_s only: no bounded end-to-end speed metric in sift1m_ivfpq.batch256."""
+
+from portbench.readers import TAKE_ROWS as SPANS, ms_per_call  # noqa: F401
+
+
+def read(t):
+    return ms_per_call(t, "take_rows")
