@@ -63,6 +63,7 @@ import torch
 from ..arrow import fsl_to_numpy
 from ..errors import InvalidInputError
 from ..io.object_store import ObjectStore
+from ..metrics import count_h2d, span
 from ..ops import prng
 from ..ops.adc import PMAX_ALIGN, S_ALIGN, ivf_pq_adc_scan
 from ..ops.distance import normalize_metric, pairwise_distance, refine_distances
@@ -211,6 +212,8 @@ def _column_blocks(dataset, column: str, metric: str, device: torch.device,
                 _unit_rows(part, out=host)
             else:
                 np.copyto(host, part)
+            if device.type != "cpu":
+                count_h2d(host.nbytes, pinned=device.type == "cuda")
             yield start, staging[:m].to(device)
             start += m
 
@@ -330,15 +333,19 @@ def _scatter_padded(
 def _to_device(arr: np.ndarray, device: torch.device, dtype=None) -> torch.Tensor:
     """Host → device once, cast to ``dtype`` on the host first (the copy
     moves the narrow bytes, and no wide copy sits on the card); large
-    copies to the card go through pinned memory."""
+    copies to the card go through pinned memory. Each copy off the host
+    counts its bytes in ``lancedb.h2d_bytes``."""
     arr = np.ascontiguousarray(arr)
     if not arr.flags.writeable:  # a read-only memory map of an index file
         arr = arr.copy()
     t = torch.from_numpy(arr)
     if dtype is not None:
         t = t.to(dtype)
-    if device.type == "cuda" and t.nbytes >= (1 << 24):
+    pinned = device.type == "cuda" and t.nbytes >= (1 << 24)
+    if pinned:
         t = t.pin_memory()
+    if device.type != "cpu":
+        count_h2d(t.nbytes, pinned)
     return t.to(device, non_blocking=device.type == "cuda")
 
 
@@ -380,7 +387,8 @@ def build_vector_index(
         row_ids, frag_ids = _build_ivf(store, prefix, meta_doc, config, dataset, column, metric,
                                        device)
     meta_doc["build_seconds"] = time.time() - t0
-    store.write_bytes(f"{prefix}/meta.json", json.dumps(meta_doc).encode())
+    with span("build.write"):
+        store.write_bytes(f"{prefix}/meta.json", json.dumps(meta_doc).encode())
     return IndexMeta(
         name=name or f"{column}_idx",
         uuid=uuid,
@@ -417,14 +425,15 @@ def _build_ivf(
     index_type = config.index_type
     build_dtype = _build_dtype(config, device)
     vectors = None
-    if index_type in ("IVF_PQ", "IVF_RQ"):
-        row_ids, frag_ids, xd = _upload_vectors(dataset, column, metric, device, build_dtype)
-    else:
-        vectors, row_ids, frag_ids = _collect_vectors(dataset, column)
-        if metric == "cosine":
-            # normalize once at build: cosine == l2²/2 on the unit sphere
-            vectors = _unit_rows(vectors)
-        xd = _to_device(vectors, device, build_dtype)
+    with span("build.upload"):
+        if index_type in ("IVF_PQ", "IVF_RQ"):
+            row_ids, frag_ids, xd = _upload_vectors(dataset, column, metric, device, build_dtype)
+        else:
+            vectors, row_ids, frag_ids = _collect_vectors(dataset, column)
+            if metric == "cosine":
+                # normalize once at build: cosine == l2²/2 on the unit sphere
+                vectors = _unit_rows(vectors)
+            xd = _to_device(vectors, device, build_dtype)
     n, dim = xd.shape
     meta_doc.update(dim=dim, num_rows=n)
     nparts = config.num_partitions or default_num_partitions(n)
@@ -452,51 +461,60 @@ def _build_ivf(
     )
     if is_pq:
         meta_doc["build_mode"] = "res_free" if res_free else f"residuals_{res_dtype}"
-    rng = np.random.default_rng(config.seed)
-    n_sample = min(n, config.sample_rate * nparts)
-    n_pool = min(n_sample, max(32 * nparts, 4 * nparts))
-    sel = (
-        rng.choice(n, size=n_sample, replace=False) if n_sample < n else np.arange(n)
-    ).astype(np.int32)
-    pool_sel = (
-        rng.choice(n_sample, size=n_pool, replace=False)
-        if n_pool < n_sample else np.arange(n_sample)
-    ).astype(np.int32)
-    reseed = rng.integers(0, n_sample, size=(config.max_iterations, nparts)).astype(np.int32)
+    with span("build.sample"):
+        rng = np.random.default_rng(config.seed)
+        n_sample = min(n, config.sample_rate * nparts)
+        n_pool = min(n_sample, max(32 * nparts, 4 * nparts))
+        sel = (
+            rng.choice(n, size=n_sample, replace=False) if n_sample < n else np.arange(n)
+        ).astype(np.int32)
+        pool_sel = (
+            rng.choice(n_sample, size=n_pool, replace=False)
+            if n_pool < n_sample else np.arange(n_sample)
+        ).astype(np.int32)
+        reseed = rng.integers(0, n_sample, size=(config.max_iterations, nparts)).astype(np.int32)
 
     # the reference pads a res_free table to whole chunks for its lax.map;
     # the chunk loops here take a ragged last chunk, so nothing is padded
-    cents_d, assign_d, residuals_d = ivf_train_assign_device(
-        xd, torch.from_numpy(sel), torch.from_numpy(pool_sel), prng.prng_key(config.seed),
-        torch.from_numpy(reseed),
-        k=nparts, max_iters=config.max_iterations, metric=train_metric,
-        chunk=min(chunk, n), with_residuals=need_res and not res_free,
-        residual_dtype=res_dtype,
-    )
-    if not res_free:
-        del xd
-    centroids = cents_d.cpu().numpy()
-    assign = assign_d.cpu().numpy()
-    # PQ blocks keep the lane alignment the reference's kernel requires
-    order, block_centroids, counts, pmax = _balanced_layout(
-        assign, centroids, pad_multiple=PMAX_ALIGN if is_pq else 8
-    )
-    rid_padded = _scatter_padded(row_ids.view(np.int64), order, counts, pmax, fill=-1)
-    _save_npy(store, f"{prefix}/centroids.npy", block_centroids)
-    _save_npy(store, f"{prefix}/row_ids.npy", rid_padded)
-    _save_npy(store, f"{prefix}/counts.npy", counts.astype(np.int32))
+    with span("build.kmeans"):
+        cents_d, assign_d, residuals_d = ivf_train_assign_device(
+            xd, _to_device(sel, device), _to_device(pool_sel, device),
+            prng.prng_key(config.seed), _to_device(reseed, device),
+            k=nparts, max_iters=config.max_iterations, metric=train_metric,
+            chunk=min(chunk, n), with_residuals=need_res and not res_free,
+            residual_dtype=res_dtype,
+        )
+        if not res_free:
+            del xd
+        centroids = cents_d.cpu().numpy()
+        assign = assign_d.cpu().numpy()
+    with span("build.layout"):
+        # PQ blocks keep the lane alignment the reference's kernel requires
+        order, block_centroids, counts, pmax = _balanced_layout(
+            assign, centroids, pad_multiple=PMAX_ALIGN if is_pq else 8
+        )
+        rid_padded = _scatter_padded(row_ids.view(np.int64), order, counts, pmax, fill=-1)
+    with span("build.write"):
+        _save_npy(store, f"{prefix}/centroids.npy", block_centroids)
+        _save_npy(store, f"{prefix}/row_ids.npy", rid_padded)
+        _save_npy(store, f"{prefix}/counts.npy", counts.astype(np.int32))
     meta_doc.update(num_partitions=len(counts), num_logical_partitions=nparts, pmax=pmax)
     if index_type == "IVF_FLAT":
-        _save_npy(store, f"{prefix}/vectors.npy", _scatter_padded(vectors, order, counts, pmax))
+        with span("build.write"):
+            _save_npy(store, f"{prefix}/vectors.npy",
+                      _scatter_padded(vectors, order, counts, pmax))
         meta_doc["precision"] = getattr(config, "precision", "float32")
         return row_ids, frag_ids
     if index_type == "IVF_SQ":
-        _save_sq(store, prefix, vectors, order, counts, pmax)
+        with span("build.write"):
+            _save_sq(store, prefix, vectors, order, counts, pmax)
         return row_ids, frag_ids
     if index_type == "IVF_RQ":
-        residuals = residuals_d.float().cpu().numpy()
-        del residuals_d
-        _save_rq(store, prefix, config.seed, residuals, centroids, assign, order, counts, pmax)
+        with span("build.write"):
+            residuals = residuals_d.float().cpu().numpy()
+            del residuals_d
+            _save_rq(store, prefix, config.seed, residuals, centroids, assign, order, counts,
+                     pmax)
         meta_doc.update(num_bits=1)
         return row_ids, frag_ids
 
@@ -508,7 +526,7 @@ def _build_ivf(
         sel_pq = np.random.default_rng(config.seed + 1).choice(
             n, size=train_rows, replace=False
         ) if train_rows < n else np.arange(n)
-        res_sample = residuals_d[torch.from_numpy(sel_pq).to(device)].float().cpu().numpy()
+        res_sample = residuals_d[_to_device(sel_pq, device)].float().cpu().numpy()
         rotation, codebooks = opq_train(
             res_sample, nsub, num_bits=config.num_bits,
             opq_iters=getattr(config, "opq_iters", 8), max_iters=config.max_iterations,
@@ -521,43 +539,45 @@ def _build_ivf(
         del residuals_d
     else:
         kcode = 1 << config.num_bits
-        rng_pq = np.random.default_rng(config.seed + 1)
-        n_train = min(n, config.sample_rate * kcode)
-        sel_pq = (
-            rng_pq.choice(n, size=n_train, replace=False) if n_train < n else np.arange(n)
-        ).astype(np.int32)
-        n_pq_pool = min(n_train, 32 * kcode)
-        pq_pool_sel = (
-            rng_pq.choice(n_train, size=n_pq_pool, replace=False)
-            if n_pq_pool < n_train else np.arange(n_train)
-        ).astype(np.int32)
-        reseed_pq = rng_pq.integers(0, n_train, size=(config.max_iterations, kcode)).astype(
-            np.int32
-        )
-        codebooks_d, codes_d, rnorms_d = pq_build_device(
-            xd if res_free else residuals_d, cents_d, assign_d, torch.from_numpy(sel_pq),
-            torch.from_numpy(pq_pool_sel), prng.split(prng.prng_key(config.seed), nsub),
-            torch.from_numpy(reseed_pq),
-            nsub=nsub, kcode=kcode, max_iters=config.max_iterations, chunk=min(chunk, n),
-            from_raw=res_free,
-        )
-        del residuals_d
-        if res_free:
-            del xd
-        codebooks = codebooks_d.cpu().numpy()
-        codes = codes_d.cpu().numpy()
-        rnorms = rnorms_d.cpu().numpy()
-    # codes live as (P, S_pad, pmax): subvectors, then slots
-    codes_psp = _scatter_padded(codes, order, counts, pmax).transpose(0, 2, 1)
-    s_pad = round_up(nsub, S_ALIGN)
-    if s_pad != nsub:
-        codes_psp = np.pad(codes_psp, ((0, 0), (0, s_pad - nsub), (0, 0)))
-    _save_npy(store, f"{prefix}/codes.npy", np.ascontiguousarray(codes_psp))
-    _save_npy(store, f"{prefix}/codebooks.npy", codebooks)
-    _save_npy(
-        store, f"{prefix}/rnorms.npy",
-        _scatter_padded(rnorms, order, counts, pmax, fill=PAD_PENALTY),
-    )
+        with span("build.sample"):
+            rng_pq = np.random.default_rng(config.seed + 1)
+            n_train = min(n, config.sample_rate * kcode)
+            sel_pq = (
+                rng_pq.choice(n, size=n_train, replace=False) if n_train < n else np.arange(n)
+            ).astype(np.int32)
+            n_pq_pool = min(n_train, 32 * kcode)
+            pq_pool_sel = (
+                rng_pq.choice(n_train, size=n_pq_pool, replace=False)
+                if n_pq_pool < n_train else np.arange(n_train)
+            ).astype(np.int32)
+            reseed_pq = rng_pq.integers(
+                0, n_train, size=(config.max_iterations, kcode)).astype(np.int32)
+        with span("build.pq"):
+            codebooks_d, codes_d, rnorms_d = pq_build_device(
+                xd if res_free else residuals_d, cents_d, assign_d, _to_device(sel_pq, device),
+                _to_device(pq_pool_sel, device), prng.split(prng.prng_key(config.seed), nsub),
+                _to_device(reseed_pq, device),
+                nsub=nsub, kcode=kcode, max_iters=config.max_iterations, chunk=min(chunk, n),
+                from_raw=res_free,
+            )
+            del residuals_d
+            if res_free:
+                del xd
+            codebooks = codebooks_d.cpu().numpy()
+            codes = codes_d.cpu().numpy()
+            rnorms = rnorms_d.cpu().numpy()
+    with span("build.layout"):
+        # codes live as (P, S_pad, pmax): subvectors, then slots
+        codes_psp = _scatter_padded(codes, order, counts, pmax).transpose(0, 2, 1)
+        s_pad = round_up(nsub, S_ALIGN)
+        if s_pad != nsub:
+            codes_psp = np.pad(codes_psp, ((0, 0), (0, s_pad - nsub), (0, 0)))
+        codes_psp = np.ascontiguousarray(codes_psp)
+        rnorms_padded = _scatter_padded(rnorms, order, counts, pmax, fill=PAD_PENALTY)
+    with span("build.write"):
+        _save_npy(store, f"{prefix}/codes.npy", codes_psp)
+        _save_npy(store, f"{prefix}/codebooks.npy", codebooks)
+        _save_npy(store, f"{prefix}/rnorms.npy", rnorms_padded)
     meta_doc.update(num_sub_vectors=nsub, num_bits=config.num_bits)
     return row_ids, frag_ids
 
@@ -1143,10 +1163,10 @@ class VectorSearcher:
         for start, blk in _column_blocks(dataset, column, self.metric, self.device):
             stop = start + blk.shape[0]
             at = np.arange(start, stop) if dest is None else dest[start:stop]
-            rows = torch.from_numpy(at).to(self.device)
+            rows = _to_device(at, self.device)
             orig = blk
             if self._refine_residual:
-                c = cents[torch.from_numpy(part_of_row[at]).to(self.device).long()]
+                c = cents[_to_device(part_of_row[at], self.device).long()]
                 blk = blk - c
                 orig = blk + c  # the norms of the rows the residuals rebuild
             vecs[rows] = blk.to(dtype)

@@ -26,15 +26,19 @@ streams the dataset's fragments through the filter and projection.
 ``explain_plan`` prints the physical plan; ``analyze_plan`` runs the
 query and times each operator, synchronizing the table's CUDA device
 around each one so that the times cover the device's work (only during
-an analyze run). A text query for the vector leg is embedded on the host
-by the table's embedding function (``Table._embed_query``), then searched as
-a vector. ``use_lsm()`` on a plain scan merges the LSM WAL's rows over the
-table, newest write winning; searches refuse it, as the reference's do.
+an analyze run: ``metrics.analyze``). Each layer of a search is a
+``metrics.span``: ``query.vector`` (the call, from ``to_arrow``) over
+``query.plan``, ``prefilter.allowed_rowids``, ``searcher.slot_penalty``,
+``searcher.search``, ``query.hydrate`` (one ``dataset.take_rows`` a
+query) and ``query.finish`` (the postfilter, offset and ordering). A
+text query for the vector leg is embedded on the host by the table's
+embedding function (``Table._embed_query``), then searched as a vector.
+``use_lsm()`` on a plain scan merges the LSM WAL's rows over the table,
+newest write winning; searches refuse it, as the reference's do.
 """
 
 from __future__ import annotations
 
-import contextvars
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field, replace
@@ -42,14 +46,13 @@ from typing import Iterable
 
 import numpy as np
 import pyarrow as pa
-import torch
 
 from .arrow import fsl_to_numpy, is_multivector_type, vector_column_name
 from .errors import InvalidInputError
 from .filters.eval import evaluate_expression, evaluate_predicate_mask
 from .filters.sql import parse_sql_expr
 from .index.vector import SearchParams, brute_force_search
-from .metrics import recorder
+from .metrics import analyze, recorder, span
 from .ops.distance import normalize_metric
 from .rerankers.base import RELEVANCE_COL, SCORE_COL
 from .storage.dataset import ROW_ID_COL
@@ -104,6 +107,88 @@ def execute_vector_query(table, req: VectorQueryRequest) -> pa.Table:
         raise InvalidInputError("no query vector provided")
     if column in ds.schema.names and is_multivector_type(ds.schema.field(column).type):
         return _execute_multivector_query(table, req, column)
+    with span("query.plan"):
+        queries, multi, index_meta, searcher, metric = _plan_vector_query(table, req, column)
+
+    # ---- prefilter -------------------------------------------------------
+    allowed: np.ndarray | None = None
+    if req.filter is not None and req.prefilter:
+        with span("prefilter.allowed_rowids", op="PrefilterExec") as t:
+            allowed = compute_allowed_rowids(table, req.filter)
+            t.set_rows(len(allowed))
+        if len(allowed) == 0:
+            return _empty_result(table, req, multi)
+    k_search = req.k + req.offset
+
+    # ---- search ----------------------------------------------------------
+    if searcher is None:
+        with span("query.knn_flat", op="KnnFlatExec") as t:
+            dists, rowids = _brute_force_fragments(
+                table, column, queries, req, k_search, metric, frags=ds.manifest.fragments
+            )
+            t.set_rows(int((rowids != _INVALID_ROWID).sum()))
+    else:
+        with span("query.plan"):
+            # rows deleted after the build, and fragments dropped since
+            deleted, vanished = _deleted_rowids(ds, index_meta, searcher)
+            if req.refine_factor is not None:
+                # fused device refine when a resident copy of the column
+                # fits; search() then returns already-refined results. A
+                # float32-precision request uploads an exact f32 table.
+                searcher.prepare_device_refine(
+                    ds, column, precision="float32" if req.precision == "float32" else None
+                )
+        with span("searcher.slot_penalty"):
+            pen = searcher.slot_penalty(allowed, deleted, vanished_fragments=vanished)
+
+        def run(nprobes: int):
+            params = SearchParams(k=k_search, nprobes=nprobes, refine_factor=req.refine_factor,
+                                  ef=req.ef, precision=req.precision)
+            d, r = searcher.search(queries, params, slot_penalty=pen)
+            if req.refine_factor is not None and not searcher.will_fuse_refine(params):
+                d, r = searcher.refine(ds, column, queries, d, r, k_search)
+            return d, r
+
+        with span("searcher.search", op="ANNSubIndexExec") as t:
+            dists, rowids = run(req.minimum_nprobes)
+            # adaptive expansion (reference minimum/maximum_nprobes,
+            # query.rs:1215-1283): when filters starve the probed partitions,
+            # retry once at maximum_nprobes (None = every partition)
+            max_np = (req.maximum_nprobes if req.maximum_nprobes is not None
+                      else max(req.minimum_nprobes, 1 << 20))
+            if max_np > req.minimum_nprobes and (rowids == _INVALID_ROWID).any():
+                dists, rowids = run(max_np)
+            t.set_rows(int((rowids != _INVALID_ROWID).sum()))
+        # delta fragments not covered by the index → brute force + merge
+        covered = set(index_meta.fragment_ids)
+        delta = [f for f in ds.manifest.fragments if f.id not in covered]
+        if delta and not req.fast_search:
+            with span("query.knn_flat", op="KnnFlatExec") as t:
+                d2, r2 = _brute_force_fragments(table, column, queries, req, k_search, metric,
+                                                delta)
+                t.set_rows(int((r2 != _INVALID_ROWID).sum()))
+            dists, rowids = _merge_host(dists, rowids, d2, r2, k_search)
+
+    with span("query.hydrate", op="TakeExec") as t:
+        # ---- distance range: lower bound inclusive, upper bound exclusive
+        if req.lower_bound is not None:
+            dists = np.where(dists >= req.lower_bound, dists, np.inf)
+        if req.upper_bound is not None:
+            dists = np.where(dists < req.upper_bound, dists, np.inf)
+        rowids = np.where(np.isfinite(dists), rowids, _INVALID_ROWID)
+        recorder().increment_counter("lancedb.queries",
+                                     labels={"table": table.name, "kind": "vector"})
+        out = _hydrate_results(table, req, dists, rowids, multi)
+        t.set_rows(out.num_rows)
+    with span("query.finish"):
+        return _postfilter_and_offset(out, req, len(req.query_vectors) if multi else 0)
+
+
+def _plan_vector_query(table, req: VectorQueryRequest, column: str):
+    """The request's checks, its queries stacked, and the index that
+    serves it → (queries, multi, index_meta, searcher, metric); no index
+    (None, None) when none serves the column and metric."""
+    ds = table._dataset
     # nprobes validation (reference query.rs minimum/maximum_nprobes;
     # maximum_nprobes=0 means "no limit")
     if req.minimum_nprobes <= 0:
@@ -129,75 +214,7 @@ def execute_vector_query(table, req: VectorQueryRequest) -> pa.Table:
     if searcher is not None and req.distance_type is not None and metric != searcher.metric:
         # a metric the index was not built for: brute force in that metric
         searcher = index_meta = None
-
-    # ---- prefilter -------------------------------------------------------
-    allowed: np.ndarray | None = None
-    if req.filter is not None and req.prefilter:
-        with _op_timer("PrefilterExec") as t:
-            allowed = compute_allowed_rowids(table, req.filter)
-            t.set_rows(len(allowed))
-        if len(allowed) == 0:
-            return _empty_result(table, req, multi)
-    k_search = req.k + req.offset
-
-    # ---- search ----------------------------------------------------------
-    if searcher is None:
-        with _op_timer("KnnFlatExec") as t:
-            dists, rowids = _brute_force_fragments(
-                table, column, queries, req, k_search, metric, frags=ds.manifest.fragments
-            )
-            t.set_rows(int((rowids != _INVALID_ROWID).sum()))
-    else:
-        # rows deleted after the build, and fragments dropped since
-        deleted, vanished = _deleted_rowids(ds, index_meta, searcher)
-        pen = searcher.slot_penalty(allowed, deleted, vanished_fragments=vanished)
-        if req.refine_factor is not None:
-            # fused device refine when a resident copy of the column fits;
-            # search() then returns already-refined results. A
-            # float32-precision request uploads an exact f32 table.
-            searcher.prepare_device_refine(
-                ds, column, precision="float32" if req.precision == "float32" else None
-            )
-
-        def run(nprobes: int):
-            params = SearchParams(k=k_search, nprobes=nprobes, refine_factor=req.refine_factor,
-                                  ef=req.ef, precision=req.precision)
-            d, r = searcher.search(queries, params, slot_penalty=pen)
-            if req.refine_factor is not None and not searcher.will_fuse_refine(params):
-                d, r = searcher.refine(ds, column, queries, d, r, k_search)
-            return d, r
-
-        with _op_timer("ANNSubIndexExec") as t:
-            dists, rowids = run(req.minimum_nprobes)
-            # adaptive expansion (reference minimum/maximum_nprobes,
-            # query.rs:1215-1283): when filters starve the probed partitions,
-            # retry once at maximum_nprobes (None = every partition)
-            max_np = (req.maximum_nprobes if req.maximum_nprobes is not None
-                      else max(req.minimum_nprobes, 1 << 20))
-            if max_np > req.minimum_nprobes and (rowids == _INVALID_ROWID).any():
-                dists, rowids = run(max_np)
-            t.set_rows(int((rowids != _INVALID_ROWID).sum()))
-        # delta fragments not covered by the index → brute force + merge
-        covered = set(index_meta.fragment_ids)
-        delta = [f for f in ds.manifest.fragments if f.id not in covered]
-        if delta and not req.fast_search:
-            with _op_timer("KnnFlatExec") as t:
-                d2, r2 = _brute_force_fragments(table, column, queries, req, k_search, metric,
-                                                delta)
-                t.set_rows(int((r2 != _INVALID_ROWID).sum()))
-            dists, rowids = _merge_host(dists, rowids, d2, r2, k_search)
-
-    # ---- distance range: lower bound inclusive, upper bound exclusive ----
-    if req.lower_bound is not None:
-        dists = np.where(dists >= req.lower_bound, dists, np.inf)
-    if req.upper_bound is not None:
-        dists = np.where(dists < req.upper_bound, dists, np.inf)
-    rowids = np.where(np.isfinite(dists), rowids, _INVALID_ROWID)
-    recorder().increment_counter("lancedb.queries", labels={"table": table.name, "kind": "vector"})
-    with _op_timer("TakeExec") as t:
-        out = _hydrate_results(table, req, dists, rowids, multi)
-        t.set_rows(out.num_rows)
-    return _postfilter_and_offset(out, req, len(req.query_vectors) if multi else 0)
+    return queries, multi, index_meta, searcher, metric
 
 
 def _postfilter_and_offset(out: pa.Table, req: VectorQueryRequest, nq_multi: int) -> pa.Table:
@@ -205,7 +222,7 @@ def _postfilter_and_offset(out: pa.Table, req: VectorQueryRequest, nq_multi: int
     query's rows ``offset`` to ``offset + k`` (split by query_index for a
     batch of ``nq_multi`` queries)."""
     if req.filter is not None and not req.prefilter and out.num_rows:
-        with _op_timer("FilterExec") as t:
+        with span("query.postfilter", op="FilterExec") as t:
             out = out.filter(pa.array(evaluate_predicate_mask(out, req.filter)))
             t.set_rows(out.num_rows)
     if req.offset:
@@ -385,55 +402,6 @@ def _empty_result(table, req, multi) -> pa.Table:
 
 # ===================================================================== plans
 
-# Per-operator metrics of an analyze run (reference query.py:411-519): the
-# operators of execute_vector_query record into a context variable that
-# only analyze_plan sets, so a plain query pays nothing.
-_PLAN_METRICS: contextvars.ContextVar = contextvars.ContextVar("plan_metrics", default=None)
-
-
-@dataclass
-class _PlanSink:
-    metrics: dict
-    # the table's device, synchronized around each operator; None for a
-    # run on the host alone (SQL)
-    device: torch.device | None = None
-
-
-def _device_clock(device: torch.device | None) -> float:
-    """The host clock, read once the device's queued work has finished."""
-    if device is not None and device.type == "cuda":
-        torch.cuda.synchronize(device)
-    return time.perf_counter()
-
-
-class _op_timer:
-    """Times one operator while an analyze run is active; a no-op otherwise.
-    On a CUDA device the clock is read after a synchronization of the
-    table's device, so an operator's time covers the device work it
-    queued, not only the time to launch it."""
-
-    def __init__(self, op: str):
-        self.op = op
-        self._sink = _PLAN_METRICS.get()
-        self.rows = None
-
-    def __enter__(self):
-        if self._sink is not None:
-            self._t0 = _device_clock(self._sink.device)
-        return self
-
-    def set_rows(self, n: int) -> None:
-        self.rows = int(n)
-
-    def __exit__(self, *exc):
-        if self._sink is not None:
-            rec = self._sink.metrics.setdefault(self.op, {"elapsed_s": 0.0, "invocations": 0})
-            rec["elapsed_s"] += _device_clock(self._sink.device) - self._t0
-            rec["invocations"] += 1
-            if self.rows is not None:
-                rec["output_rows"] = rec.get("output_rows", 0) + self.rows
-
-
 def explain_vector_plan(table, req: VectorQueryRequest) -> str:
     """The physical plan as text (reference query.py:411, explain_plan;
     the brute force is a matmul scan on any device)."""
@@ -481,19 +449,16 @@ def analyze_vector_plan(table, req: VectorQueryRequest) -> str:
     stats = IoStats()
     orig_store = ds.store
     ds.store = IoTrackingStore(orig_store, stats)
-    sink = _PlanSink({}, table._device)
-    token = _PLAN_METRICS.set(sink)
     try:
-        t0 = _device_clock(sink.device)
-        out = execute_vector_query(table, req)
-        elapsed = _device_clock(sink.device) - t0
+        with analyze(table._device) as run:
+            out = execute_vector_query(table, req)
     finally:
-        _PLAN_METRICS.reset(token)
         ds.store = orig_store
+    elapsed = run.elapsed_s
     snap = stats.snapshot()
     plan_lines = []
     for line in explain_vector_plan(table, req).splitlines():
-        rec = sink.metrics.get(line.strip().split(":", 1)[0])
+        rec = run.ops.get(line.strip().split(":", 1)[0])
         if rec is not None:
             parts = [f"output_rows={rec.get('output_rows', 0)}",
                      f"elapsed_compute={rec['elapsed_s'] * 1e3:.3f}ms"]
@@ -866,14 +831,17 @@ class LanceVectorQueryBuilder(LanceQueryBuilder):
         return self
 
     def to_arrow(self) -> pa.Table:
-        self._check_scan_only_flags()
-        if self._reranker is None:
-            return self._sorted(execute_vector_query(self._table, self._req))
-        out = execute_vector_query(self._table, replace(self._req, with_row_id=True))
-        out = self._reranker.rerank_vector("", out).slice(0, self._req.k)
-        if not self._req.with_row_id and ROW_ID_COL in out.column_names:
-            out = out.drop_columns([ROW_ID_COL])
-        return self._sorted(out)
+        with span("query.vector"):
+            self._check_scan_only_flags()
+            if self._reranker is None:
+                out = execute_vector_query(self._table, self._req)
+            else:
+                out = execute_vector_query(self._table, replace(self._req, with_row_id=True))
+                out = self._reranker.rerank_vector("", out).slice(0, self._req.k)
+                if not self._req.with_row_id and ROW_ID_COL in out.column_names:
+                    out = out.drop_columns([ROW_ID_COL])
+            with span("query.finish"):
+                return self._sorted(out)
 
     def explain_plan(self, verbose: bool = False) -> str:
         return explain_vector_plan(self._table, self._req)

@@ -1495,7 +1495,7 @@ def execute_select(
     open_table: Callable[[str], Any],
 ) -> pa.Table:
     """Run a SELECT. `open_table(name)` resolves table names."""
-    from .query import _op_timer
+    from .metrics import span
 
     stmt = parse_select(sql_or_stmt) if isinstance(sql_or_stmt, str) else sql_or_stmt
     if getattr(stmt, "ctes", None):
@@ -1547,7 +1547,7 @@ def execute_select(
         out = _try_streaming_grouped(stmt, open_table, budget)
         if out is not None:
             if stmt.offset or stmt.limit is not None:
-                with _op_timer("GlobalLimitExec") as tm:
+                with span("sql.limit", op="GlobalLimitExec") as tm:
                     if stmt.offset:
                         out = out.slice(stmt.offset)
                     if stmt.limit is not None:
@@ -1564,7 +1564,7 @@ def execute_select(
 
     corr_counter = [0]
     if corr_where is not None:
-        with _op_timer("CorrelatedFilterExec") as tm:
+        with span("sql.correlated_filter", op="CorrelatedFilterExec") as tm:
             bound, data = _bind_correlated_expr(data, corr_where, open_table, corr_counter)
             mask = evaluate_predicate_mask(data, bound)
             data = data.filter(pa.array(mask))
@@ -1580,7 +1580,7 @@ def execute_select(
             raise InvalidInputError(
                 "correlated subqueries in the SELECT list of grouped queries are not supported"
             )
-        with _op_timer("CorrelatedProjectExec") as tm:
+        with span("sql.correlated_project", op="CorrelatedProjectExec") as tm:
             new_items = []
             for it in stmt.items:
                 if isinstance(it.expr, Star) or not _has_corr_nodes(it.expr):
@@ -1619,16 +1619,16 @@ def execute_select(
     grouped = bool(stmt.group_by) or bool(aggs)
 
     if grouped:
-        with _op_timer("AggregateExec") as tm:
+        with span("sql.aggregate", op="AggregateExec") as tm:
             out = _execute_grouped(stmt, data, aggs, open_table)
             tm.set_rows(out.num_rows)
     else:
-        with _op_timer("ProjectionExec") as tm:
+        with span("sql.projection", op="ProjectionExec") as tm:
             out = _execute_plain(stmt, data)
             tm.set_rows(out.num_rows)
 
     if stmt.offset or stmt.limit is not None:
-        with _op_timer("GlobalLimitExec") as tm:
+        with span("sql.limit", op="GlobalLimitExec") as tm:
             if stmt.offset:
                 out = out.slice(stmt.offset)
             if stmt.limit is not None:
@@ -1683,7 +1683,7 @@ def _try_streaming_grouped(stmt: SelectStatement, open_table, budget: int) -> pa
     if any(isinstance(it.expr, Star) for it in stmt.items):
         return None  # the grouped executor rejects * anyway
 
-    from .query import _op_timer
+    from .metrics import span
 
     qb = obj.search(None)
     if stmt.where is not None:
@@ -1698,7 +1698,7 @@ def _try_streaming_grouped(stmt: SelectStatement, open_table, budget: int) -> pa
     scan_cols = [c for c in cols if c in schema_names]
     if scan_cols:
         qb = qb.select(scan_cols)
-    with _op_timer("AggregateExec") as tm:
+    with span("sql.aggregate", op="AggregateExec") as tm:
         out = _execute_grouped_streaming(
             stmt, qb.to_batches(), aggs, budget, source_schema=obj.schema,
             open_table=open_table,
@@ -1713,7 +1713,7 @@ def _execute_with_ctes(stmt, open_table) -> pa.Table:
     resolver that serves the materialized tables."""
     import copy as _copy
 
-    from .query import _op_timer
+    from .metrics import span
 
     mat: dict[str, pa.Table] = {}
 
@@ -1724,12 +1724,12 @@ def _execute_with_ctes(stmt, open_table) -> pa.Table:
 
     for name, sub, cols in stmt.ctes:
         if getattr(stmt, "ctes_recursive", False) and _stmt_references_table(sub, name):
-            with _op_timer(f"RecursiveCteExec:{name}") as tm:
+            with span("sql.recursive_cte", op=f"RecursiveCteExec:{name}") as tm:
                 t = _execute_recursive_cte(name, sub, cols, resolve)
                 tm.set_rows(t.num_rows)
             mat[name] = t
             continue
-        with _op_timer(f"CteExec:{name}") as tm:
+        with span("sql.cte", op=f"CteExec:{name}") as tm:
             t = execute_select(sub, resolve)
             tm.set_rows(t.num_rows)
         if cols:
@@ -2110,7 +2110,7 @@ def _bind_correlated_expr(
 
 
 def _execute_union(stmt: UnionStatement, open_table) -> pa.Table:
-    from .query import _op_timer
+    from .metrics import span
 
     parts = [execute_select(sel, open_table) for sel in stmt.selects]
     first = parts[0]
@@ -2122,7 +2122,7 @@ def _execute_union(stmt: UnionStatement, open_table) -> pa.Table:
             )
         aligned.append(t.rename_columns(first.column_names))
     ops = stmt.ops or [("union all" if stmt.all else "union")] * (len(parts) - 1)
-    with _op_timer("UnionExec") as tm:
+    with span("sql.union", op="UnionExec") as tm:
         if all(o in ("union", "union all") for o in ops) and len(set(ops)) <= 1:
             # homogeneous UNION chain: one concat (+ one distinct)
             out = pa.concat_tables(aligned, promote_options="default")
@@ -2156,7 +2156,7 @@ def _execute_union(stmt: UnionStatement, open_table) -> pa.Table:
             order_by=stmt.order_by,
             order_nulls=list(getattr(stmt, "order_nulls", ()) or ()),
         )
-        with _op_timer("SortExec"):
+        with span("sql.sort", op="SortExec"):
             out = _apply_order(sorter, out, env=out)
     if stmt.offset:
         out = out.slice(stmt.offset)
@@ -2197,7 +2197,7 @@ def _set_op(left: pa.Table, right: pa.Table, op: str) -> pa.Table:
 
 def plan_select(stmt) -> list[tuple[int, str, str]]:
     """Physical plan tree for a SELECT as (indent, op_key, label) rows —
-    the op_key matches the _op_timer labels execute_select records, so
+    the op_key matches the span operators execute_select records, so
     analyze can join metrics onto plan lines (the same contract the
     reference gets from DataFusion operator metrics, query.rs:756)."""
     if getattr(stmt, "ctes", None):
@@ -2347,19 +2347,12 @@ def analyze_select(
     """Execute a SELECT collecting per-operator metrics; returns the
     annotated plan text and the result (reference analyze_plan —
     DataFusion-style `metrics=[...]` per plan line)."""
-    import time as _time
-
-    from .query import _PLAN_METRICS, _PlanSink
+    from .metrics import analyze
 
     stmt = parse_select(sql_or_stmt) if isinstance(sql_or_stmt, str) else sql_or_stmt
-    op_metrics: dict = {}
-    token = _PLAN_METRICS.set(_PlanSink(op_metrics))
-    try:
-        t0 = _time.perf_counter()
+    with analyze() as run:
         out = execute_select(stmt, open_table)
-        elapsed = _time.perf_counter() - t0
-    finally:
-        _PLAN_METRICS.reset(token)
+    op_metrics, elapsed = run.ops, run.elapsed_s
     plan = plan_select(stmt)
     # metrics are recorded per operator NAME; when a plan repeats a name
     # (subqueries, self-joins) the record is a sum over instances —
@@ -2399,11 +2392,11 @@ def _load_joined(stmt: SelectStatement, open_table) -> tuple[pa.Table, SelectSta
     (table/datafusion.rs). Equality keys only; colliding non-key right
     columns are suffixed `_<alias>` (qualify them in SQL to address)."""
 
-    from .query import _op_timer
+    from .metrics import span
 
     def load(src: TableSource) -> pa.Table:
         if src.kind == "table":
-            with _op_timer(f"ScanExec:{src.name}") as tm:
+            with span("sql.scan", op=f"ScanExec:{src.name}") as tm:
                 obj = open_table(src.name)
                 # materialized CTE: already a host table
                 out = obj if isinstance(obj, pa.Table) else obj.search(None).limit(None).to_arrow()
@@ -2479,7 +2472,7 @@ def _load_joined(stmt: SelectStatement, open_table) -> tuple[pa.Table, SelectSta
         collide = (set(right_schema.names) - set(rkeys)) & set(left_names)
         suffix = f"_{ralias}" if collide else ""
         if budget is None:
-            with _op_timer("HashJoinExec") as tm:
+            with span("sql.hash_join", op="HashJoinExec") as tm:
                 data = data.join(
                     right, keys=lkeys, right_keys=rkeys, join_type=j.how,
                     right_suffix=suffix or None,
@@ -2519,7 +2512,7 @@ def _load_joined(stmt: SelectStatement, open_table) -> tuple[pa.Table, SelectSta
         ]
 
     if budget is not None:
-        with _op_timer("HashJoinExec") as tm:
+        with span("sql.hash_join", op="HashJoinExec") as tm:
             parts = list(batches_factory())
             data = (
                 pa.concat_tables(parts, promote_options="default")
@@ -2554,7 +2547,7 @@ def _load_joined(stmt: SelectStatement, open_table) -> tuple[pa.Table, SelectSta
     if stmt.where is not None:
         push, corr = _split_correlated_where(stmt.where)
         if push is not None:
-            with _op_timer("FilterExec") as tm:
+            with span("sql.filter", op="FilterExec") as tm:
                 mask = evaluate_predicate_mask(data, rw(push))
                 data = data.filter(pa.array(mask))
                 tm.set_rows(data.num_rows)
@@ -2600,12 +2593,12 @@ def _load_source(stmt: SelectStatement, open_table) -> pa.Table:
     if src.kind == "dual":
         return pa.table({"__dual__": pa.array([0])})
     if src.kind == "table":
-        from .query import _op_timer
+        from .metrics import span
 
         tbl = open_table(src.name)
         if isinstance(tbl, pa.Table):
             # materialized CTE: filter/project on the host
-            with _op_timer(f"ScanExec:{src.name}") as tm:
+            with span("sql.scan", op=f"ScanExec:{src.name}") as tm:
                 out = tbl
                 if stmt.where is not None:
                     mask = evaluate_predicate_mask(out, stmt.where)
@@ -2623,7 +2616,7 @@ def _load_source(stmt: SelectStatement, open_table) -> pa.Table:
             cols = [c for c in needed if c in tbl.schema.names]
             if cols:
                 qb = qb.select(cols)
-        with _op_timer(f"ScanExec:{src.name}") as tm:
+        with span("sql.scan", op=f"ScanExec:{src.name}") as tm:
             out = qb.to_arrow()
             tm.set_rows(out.num_rows)
         return out
@@ -2644,20 +2637,20 @@ def _load_source(stmt: SelectStatement, open_table) -> pa.Table:
             if not isinstance(src.fts_k, Literal):
                 raise InvalidInputError("fts() k must be an integer literal")
             k = int(src.fts_k.value)
-        from .query import _op_timer
+        from .metrics import span
 
-        with _op_timer(f"FtsExec:{src.name}") as tm:
+        with span("sql.fts", op=f"FtsExec:{src.name}") as tm:
             out = tbl._execute_fts(
                 query, k=k, filter=stmt.where.sql() if stmt.where else None
             )
             tm.set_rows(out.num_rows)
         return out
     if src.kind == "subquery":
-        from .query import _op_timer
+        from .metrics import span
 
         data = execute_select(src.subquery, open_table)
         if stmt.where is not None:
-            with _op_timer("FilterExec") as tm:
+            with span("sql.filter", op="FilterExec") as tm:
                 mask = evaluate_predicate_mask(data, stmt.where)
                 data = data.filter(pa.array(mask))
                 tm.set_rows(data.num_rows)
@@ -2677,7 +2670,7 @@ def _fts_query_from_json(text: str):
 
 
 def _execute_plain(stmt: SelectStatement, data: pa.Table) -> pa.Table:
-    from .query import _op_timer
+    from .metrics import span
 
     wins = _find_windows(
         [it.expr for it in stmt.items if not isinstance(it.expr, Star)]
@@ -2689,7 +2682,7 @@ def _execute_plain(stmt: SelectStatement, data: pa.Table) -> pa.Table:
         import copy as _copy
 
         wbind: dict[str, Expr] = {}
-        with _op_timer("WindowAggExec") as tm:
+        with span("sql.window_agg", op="WindowAggExec") as tm:
             env = data
             for i, wf in enumerate(wins):
                 env = env.append_column(f"__win{i}", _eval_window(data, wf))
@@ -2715,15 +2708,15 @@ def _execute_plain(stmt: SelectStatement, data: pa.Table) -> pa.Table:
     if stmt.distinct:
         # DISTINCT precedes ORDER BY; afterwards sort keys must be
         # output columns (standard SQL restriction for DISTINCT)
-        with _op_timer("DistinctExec") as tm:
+        with span("sql.distinct", op="DistinctExec") as tm:
             out = out.group_by(out.column_names).aggregate([])
             tm.set_rows(out.num_rows)
         if stmt.order_by:
-            with _op_timer("SortExec"):
+            with span("sql.sort", op="SortExec"):
                 out = _apply_order(stmt, out, env=out)
         return out
     if stmt.order_by:
-        with _op_timer("SortExec"):
+        with span("sql.sort", op="SortExec"):
             out = _apply_order(stmt, out, env=data)
     return out
 
@@ -3092,7 +3085,7 @@ def _grouped_finish(stmt: SelectStatement, env: pa.Table, binding: dict[str, Exp
             mask = evaluate_predicate_mask(env, bound_having)
             env = env.filter(pa.array(mask))
 
-    from .query import _op_timer
+    from .metrics import span
 
     # window functions over the AGGREGATED rows (DataFusion: windows
     # execute after GROUP BY/HAVING; their args may reference group
@@ -3102,7 +3095,7 @@ def _grouped_finish(stmt: SelectStatement, env: pa.Table, binding: dict[str, Exp
         + [_replace(e, binding) for e, _ in stmt.order_by]
     )
     if wins:
-        with _op_timer("WindowAggExec") as tm:
+        with span("sql.window_agg", op="WindowAggExec") as tm:
             for i, wf in enumerate(wins):
                 for nd in _walk(wf):
                     if isinstance(nd, Aggregate):
@@ -3137,15 +3130,15 @@ def _grouped_finish(stmt: SelectStatement, env: pa.Table, binding: dict[str, Exp
         out_cols[it.name] = _as_array(evaluate_expression(env, bound), env.num_rows)
     out = pa.table(out_cols)
     if stmt.distinct:
-        with _op_timer("DistinctExec") as tm:
+        with span("sql.distinct", op="DistinctExec") as tm:
             out = out.group_by(out.column_names).aggregate([])
             tm.set_rows(out.num_rows)
         if stmt.order_by:
-            with _op_timer("SortExec"):
+            with span("sql.sort", op="SortExec"):
                 out = _apply_order(stmt, out, env=out)
         return out
     if stmt.order_by:
-        with _op_timer("SortExec"):
+        with span("sql.sort", op="SortExec"):
             out = _apply_order(stmt, out, env=env, binding=binding)
     return out
 

@@ -40,6 +40,7 @@ from ..errors import (
 from ..filters.eval import evaluate_expression, evaluate_predicate_mask, referenced_columns
 from ..filters.sql import parse_sql_expr
 from ..io.object_store import ObjectStore
+from ..metrics import recorder, span
 from .fragments import (
     DEFAULT_FRAGMENT_ROWS,
     FragmentReader,
@@ -725,7 +726,14 @@ class Dataset:
         return None if ent == "skip" else ent
 
     def take_rows(self, row_ids: np.ndarray, columns: list[str] | None = None) -> pa.Table:
-        """Take by stable row address, preserving request order."""
+        """Take by stable row address, preserving request order. One span
+        (``dataset.take_rows``) a call, with its ``path``: the resident
+        copy, or the fragments, whose reads it counts
+        (``lancedb.hydrate.fragment_reads``)."""
+        with span("dataset.take_rows") as t:
+            return self._take_rows(row_ids, columns, t)
+
+    def _take_rows(self, row_ids: np.ndarray, columns: list[str] | None, t) -> pa.Table:
         row_ids = np.asarray(row_ids, dtype=np.uint64)
         if len(row_ids) == 0:
             return self._empty_projection(columns, with_row_id=False)
@@ -735,17 +743,21 @@ class Dataset:
             pos = np.searchsorted(rid_sorted, row_ids)
             pos = np.clip(pos, 0, max(0, len(rid_sorted) - 1))
             if len(rid_sorted) and bool(np.all(rid_sorted[pos] == row_ids)):
+                t.set(path="resident")
                 return tbl.take(pa.array(pos.astype(np.int64)))
             # unknown row id (caller bug or raced delete): slow path
         frag_ids = (row_ids >> np.uint64(32)).astype(np.int64)
         offsets = (row_ids & np.uint64(0xFFFFFFFF)).astype(np.int64)
         pieces = []
         positions = []
-        for fid in np.unique(frag_ids):
+        fids = np.unique(frag_ids)
+        for fid in fids:
             sel = np.nonzero(frag_ids == fid)[0]
             reader = self.reader(int(fid))
             pieces.append(reader.take(offsets[sel], columns=columns))
             positions.append(sel)
+        recorder().increment_counter("lancedb.hydrate.fragment_reads", float(len(fids)))
+        t.set(path="fragments", fragments=len(fids))
         combined = pa.concat_tables(pieces)
         order = np.concatenate(positions)
         restore = np.empty(len(order), dtype=np.int64)

@@ -31,6 +31,7 @@ import pyarrow.dataset as pads
 from .arrow import is_vector_type, sanitize_vectors, to_arrow_table
 from .arrow import vector_column_name as _vector_column_name
 from .errors import IndexNotFoundError, InvalidInputError
+from .metrics import span
 from .index import (
     FTS,
     SCALAR_INDEX_TYPES,
@@ -798,83 +799,87 @@ class Table:
         create_index). AUTO picks IVF_PQ for a vector column and a BTREE
         scalar index for a scalar one (reference table.py:764-772). A
         multivector column gets its token-level FLAT index whatever the
-        index type (reference table.py:779-783)."""
+        index type (reference table.py:779-783). The build is one
+        ``index.build`` span, its commit ``table.commit``."""
         from .arrow import is_multivector_type
         from .index.hnsw import HNSW_INDEX_TYPES, build_hnsw_index
         from .index.multivector import build_multivector_index
         from .index.vector import PORTED_INDEX_TYPES, build_vector_index, unsupported_index_type
 
-        column = vector_column_name or _vector_column_name(self.schema)
-        if (config is not None and config.index_type == "AUTO") or (
-            config is None and index_type.upper() == "AUTO"
-        ):
-            # Index::Auto (reference table/create_index.rs:186-213)
-            if config is not None:
-                metric = config.distance_type
-            config = None
-            field_type = self.schema.field(column).type
-            if is_vector_type(field_type) or is_multivector_type(field_type):
-                index_type = "IVF_PQ"
-            elif _supported_btree_type(field_type):
-                self.create_scalar_index(column, index_type="BTREE", replace=replace)
+        with span("index.build"):
+            column = vector_column_name or _vector_column_name(self.schema)
+            if (config is not None and config.index_type == "AUTO") or (
+                config is None and index_type.upper() == "AUTO"
+            ):
+                # Index::Auto (reference table/create_index.rs:186-213)
+                if config is not None:
+                    metric = config.distance_type
+                config = None
+                field_type = self.schema.field(column).type
+                if is_vector_type(field_type) or is_multivector_type(field_type):
+                    index_type = "IVF_PQ"
+                elif _supported_btree_type(field_type):
+                    self.create_scalar_index(column, index_type="BTREE", replace=replace)
+                    return
+                else:
+                    raise InvalidInputError(
+                        f"there are no indices supported for the field {column!r} "
+                        f"with the data type {field_type}"
+                    )
+            if column in self.schema.names and is_multivector_type(self.schema.field(column).type):
+                meta = build_multivector_index(self._dataset, column, config,
+                                               name=name or f"{column}_idx")
+                with span("table.commit"):
+                    self._dataset.add_index(meta, replace=replace)
+                    self._invalidate_caches()
                 return
+            if config is None:
+                it = index_type.upper()
+                if it == "IVF_PQ":
+                    config = IvfPq(
+                        distance_type=metric,
+                        num_partitions=num_partitions,
+                        num_sub_vectors=num_sub_vectors,
+                        num_bits=num_bits,
+                        sample_rate=sample_rate,
+                        max_iterations=max_iterations,
+                    )
+                elif it == "IVF_FLAT":
+                    config = IvfFlat(
+                        distance_type=metric,
+                        num_partitions=num_partitions,
+                        sample_rate=sample_rate,
+                        max_iterations=max_iterations,
+                    )
+                elif it in ("IVF_SQ", "IVF_RQ"):
+                    config = (IvfSq if it == "IVF_SQ" else IvfRq)(
+                        distance_type=metric,
+                        num_partitions=num_partitions,
+                        sample_rate=sample_rate,
+                        max_iterations=max_iterations,
+                    )
+                elif it == "FLAT":
+                    config = Flat(distance_type=metric)
+                elif it in HNSW_INDEX_TYPES:
+                    cls = {"IVF_HNSW_FLAT": HnswFlat, "IVF_HNSW_SQ": HnswSq,
+                           "IVF_HNSW_PQ": HnswPq}[it]
+                    kwargs = dict(distance_type=metric, num_partitions=num_partitions)
+                    if it == "IVF_HNSW_PQ":
+                        kwargs["num_sub_vectors"] = num_sub_vectors
+                    config = cls(**kwargs)
+                else:
+                    raise unsupported_index_type(it)
+            if config.index_type in HNSW_INDEX_TYPES:
+                build = build_hnsw_index
+            elif config.index_type in PORTED_INDEX_TYPES:
+                build = build_vector_index
             else:
-                raise InvalidInputError(
-                    f"there are no indices supported for the field {column!r} "
-                    f"with the data type {field_type}"
-                )
-        if column in self.schema.names and is_multivector_type(self.schema.field(column).type):
-            meta = build_multivector_index(self._dataset, column, config,
-                                           name=name or f"{column}_idx")
-            self._dataset.add_index(meta, replace=replace)
-            self._invalidate_caches()
-            return
-        if config is None:
-            it = index_type.upper()
-            if it == "IVF_PQ":
-                config = IvfPq(
-                    distance_type=metric,
-                    num_partitions=num_partitions,
-                    num_sub_vectors=num_sub_vectors,
-                    num_bits=num_bits,
-                    sample_rate=sample_rate,
-                    max_iterations=max_iterations,
-                )
-            elif it == "IVF_FLAT":
-                config = IvfFlat(
-                    distance_type=metric,
-                    num_partitions=num_partitions,
-                    sample_rate=sample_rate,
-                    max_iterations=max_iterations,
-                )
-            elif it in ("IVF_SQ", "IVF_RQ"):
-                config = (IvfSq if it == "IVF_SQ" else IvfRq)(
-                    distance_type=metric,
-                    num_partitions=num_partitions,
-                    sample_rate=sample_rate,
-                    max_iterations=max_iterations,
-                )
-            elif it == "FLAT":
-                config = Flat(distance_type=metric)
-            elif it in HNSW_INDEX_TYPES:
-                cls = {"IVF_HNSW_FLAT": HnswFlat, "IVF_HNSW_SQ": HnswSq, "IVF_HNSW_PQ": HnswPq}[it]
-                kwargs = dict(distance_type=metric, num_partitions=num_partitions)
-                if it == "IVF_HNSW_PQ":
-                    kwargs["num_sub_vectors"] = num_sub_vectors
-                config = cls(**kwargs)
-            else:
-                raise unsupported_index_type(it)
-        if config.index_type in HNSW_INDEX_TYPES:
-            build = build_hnsw_index
-        elif config.index_type in PORTED_INDEX_TYPES:
-            build = build_vector_index
-        else:
-            raise unsupported_index_type(config.index_type)
-        meta = build(self._dataset, column, config, name=name or f"{column}_idx",
-                     device=self._device)
-        self._dataset.add_index(meta, replace=replace)
-        self._invalidate_caches()
-
+                raise unsupported_index_type(config.index_type)
+            meta = build(self._dataset, column, config, name=name or f"{column}_idx",
+                         device=self._device)
+            with span("table.commit"):
+                self._dataset.add_index(meta, replace=replace)
+                self._invalidate_caches()
 
     def create_scalar_index(
         self,

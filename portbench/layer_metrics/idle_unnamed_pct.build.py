@@ -1,0 +1,12 @@
+"""The device's idle time in the traced window while no program span, or
+only a call's root (``query.vector``, ``index.build``), is open, in % of
+the window: the idle time that no layer of the program can be charged
+with (device intervals from torch.profiler, spans from the program);
+moves index_build_s in sift1m_ivfpq.build."""
+
+from portbench.program_spans import SPANS_DROPPED as COUNTERS  # noqa: F401
+from portbench.program_spans import idle_unnamed_pct, window_records
+
+
+def read(t):
+    return idle_unnamed_pct(t, window_records(t))
