@@ -9,10 +9,11 @@ into OpenTelemetry observable instruments.
 The engine publishes object-store IO metrics (reference lib.rs:36-40:
 request counts/bytes) and query/index counters through this module:
 ``lancedb.queries``, ``lancedb.h2d_bytes`` (each host-to-device copy of
-the search and build paths, labelled ``memory`` pinned / pageable) and
-``lancedb.hydrate.fragment_reads`` (the fragment reads of a hydration
-that misses the resident copy). ``counter_totals`` reads a counter's
-total over its labels by name.
+the search and build paths, labelled ``memory`` pinned / pageable),
+``lancedb.hydrate.takes`` (the takes a search's hydration makes: one a
+call) and ``lancedb.hydrate.fragment_reads`` (the fragment reads of a
+hydration that misses the resident copy). ``counter_totals`` reads a
+counter's total over its labels by name.
 
 ``span(name)`` times one layer of a call. A span is kept while recording
 is on: inside ``tracing()``, or while a ``torch.profiler`` session runs,

@@ -10,10 +10,11 @@ Port of the reference's query.py:
      unindexed "delta" fragments (skipped by fast_search), merged on the
      host; hamming brute-forces packed uint8 columns
   3. optional exact refine (fused on the device when the column fits)
-  4. distance range on the host, then hydrate the selected columns with
-     take_rows, append _distance; postfilter and offset apply to the rows.
-     Each call counts one ``lancedb.queries`` (metrics.py) before it
-     hydrates, whatever its number of query vectors
+  4. distance range on the host, then hydrate the selected columns of
+     every query's rows with one take_rows, append _distance; postfilter
+     and offset apply to the rows. Each call counts one
+     ``lancedb.queries`` (metrics.py) before it hydrates, whatever its
+     number of query vectors
 
 Full-text search runs the BM25 index on the host (index/fts.py). A hybrid
 search runs its full-text legs on host threads while the calling thread
@@ -30,9 +31,10 @@ an analyze run: ``metrics.analyze``). Each layer of a search is a
 ``metrics.span``: ``query.vector`` (the call, from ``to_arrow``) over
 ``query.plan``, ``prefilter.allowed_rowids``, ``searcher.slot_penalty``,
 ``searcher.search``, ``query.hydrate`` (one ``dataset.take_rows`` a
-query) and ``query.finish`` (the postfilter, offset and ordering). A
-text query for the vector leg is embedded on the host by the table's
-embedding function (``Table._embed_query``), then searched as a vector.
+call, over every query's rows) and ``query.finish`` (the postfilter,
+offset and ordering). A text query for the vector leg is embedded on
+the host by the table's embedding function (``Table._embed_query``),
+then searched as a vector.
 ``use_lsm()`` on a plain scan merges the LSM WAL's rows over the table,
 newest write winning; searches refuse it, as the reference's do.
 """
@@ -169,7 +171,7 @@ def execute_vector_query(table, req: VectorQueryRequest) -> pa.Table:
                 t.set_rows(int((r2 != _INVALID_ROWID).sum()))
             dists, rowids = _merge_host(dists, rowids, d2, r2, k_search)
 
-    with span("query.hydrate", op="TakeExec") as t:
+    with span("query.hydrate", op="TakeExec", queries=len(queries)) as t:
         # ---- distance range: lower bound inclusive, upper bound exclusive
         if req.lower_bound is not None:
             dists = np.where(dists >= req.lower_bound, dists, np.inf)
@@ -368,23 +370,23 @@ def _project(tbl: pa.Table, select: dict[str, str]) -> pa.Table:
 
 
 def _hydrate_results(table, req, dists, rowids, multi) -> pa.Table:
-    ds = table._dataset
-    parts = []
-    for qi in range(dists.shape[0]):
-        valid = rowids[qi] != _INVALID_ROWID
-        rid = rowids[qi][valid]
-        data = ds.take_rows(rid, columns=_selected_columns(req))
-        if isinstance(req.select, dict):
-            data = _project(data, req.select)
-        data = data.append_column(DIST_COL, pa.array(dists[qi][valid].astype(np.float32)))
-        if req.with_row_id:
-            data = data.append_column(ROW_ID_COL, pa.array(rid, type=pa.uint64()))
-        if multi:
-            data = data.append_column(
-                QUERY_INDEX_COL, pa.array(np.full(len(rid), qi, dtype=np.int32))
-            )
-        parts.append(data)
-    return pa.concat_tables(parts)
+    """Every query's valid rows in one take: query 0's in distance order,
+    then query 1's, and so on, with ``_distance`` (``_rowid``,
+    ``query_index``) appended. One ``lancedb.hydrate.takes`` a call."""
+    valid = rowids != _INVALID_ROWID
+    rid = rowids[valid]
+    nq = rowids.shape[0]
+    recorder().increment_counter("lancedb.hydrate.takes")
+    data = table._dataset.take_rows(rid, columns=_selected_columns(req), _lookups=nq)
+    if isinstance(req.select, dict):
+        data = _project(data, req.select)
+    data = data.append_column(DIST_COL, pa.array(dists[valid].astype(np.float32)))
+    if req.with_row_id:
+        data = data.append_column(ROW_ID_COL, pa.array(rid, type=pa.uint64()))
+    if multi:
+        qidx = np.repeat(np.arange(nq, dtype=np.int32), valid.sum(axis=1))
+        data = data.append_column(QUERY_INDEX_COL, pa.array(qidx))
+    return data
 
 
 def _empty_result(table, req, multi) -> pa.Table:

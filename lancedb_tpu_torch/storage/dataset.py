@@ -692,20 +692,21 @@ class Dataset:
             fields.append(pa.field(ROW_ID_COL, pa.uint64()))
         return pa.schema(fields).empty_table()
 
-    def _hydration_fastpath(self, columns: list[str] | None):
-        """A rowid-sorted resident copy of the projection, built after a
-        few take_rows calls hit the same (version, columns) key. Serving
-        hydrates k≈10 rows per query; the per-fragment/per-batch take
-        path costs ~6 Arrow kernel calls per query while this is ONE
-        pc.take. Bounded by LANCEDB_TPU_HYDRATION_CACHE_BYTES (4e9);
-        larger projections are marked "skip" and use the slow path."""
+    def _hydration_fastpath(self, columns: list[str] | None, lookups: int):
+        """A rowid-sorted resident copy of the projection, built once 8
+        lookups have hit the same (version, columns) key; a take counts
+        the ``lookups`` (queries) it serves. Serving hydrates k≈10 rows
+        per query; the per-fragment/per-batch take path costs several
+        Arrow kernel calls per batch of rows while this is ONE pc.take.
+        Bounded by LANCEDB_TPU_HYDRATION_CACHE_BYTES (4e9); larger
+        projections are marked "skip" and use the slow path."""
         key = (self.version, self.branch, tuple(columns) if columns else None)
         ent = self._hydration_cache.get(key)
         if ent == "skip":
             return None
         if ent is not None:
             return ent
-        hits = self._hydration_hits.get(key, 0) + 1
+        hits = self._hydration_hits.get(key, 0) + lookups
         self._hydration_hits[key] = hits
         if hits < 8:
             return None
@@ -725,19 +726,22 @@ class Dataset:
         self._hydration_cache[key] = ent
         return None if ent == "skip" else ent
 
-    def take_rows(self, row_ids: np.ndarray, columns: list[str] | None = None) -> pa.Table:
+    def take_rows(self, row_ids: np.ndarray, columns: list[str] | None = None, *,
+                  _lookups: int = 1) -> pa.Table:
         """Take by stable row address, preserving request order. One span
         (``dataset.take_rows``) a call, with its ``path``: the resident
         copy, or the fragments, whose reads it counts
-        (``lancedb.hydrate.fragment_reads``)."""
+        (``lancedb.hydrate.fragment_reads``). ``_lookups``: the queries
+        a search's take serves, counted toward the resident copy."""
         with span("dataset.take_rows") as t:
-            return self._take_rows(row_ids, columns, t)
+            return self._take_rows(row_ids, columns, t, _lookups)
 
-    def _take_rows(self, row_ids: np.ndarray, columns: list[str] | None, t) -> pa.Table:
+    def _take_rows(self, row_ids: np.ndarray, columns: list[str] | None, t,
+                   lookups: int) -> pa.Table:
         row_ids = np.asarray(row_ids, dtype=np.uint64)
         if len(row_ids) == 0:
             return self._empty_projection(columns, with_row_id=False)
-        fast = self._hydration_fastpath(columns)
+        fast = self._hydration_fastpath(columns, lookups)
         if fast is not None:
             rid_sorted, tbl = fast
             pos = np.searchsorted(rid_sorted, row_ids)

@@ -81,7 +81,8 @@ def test_search_span_tree(indexed):
     assert root.parent is None and children == SEARCH_CHILDREN
     hydrate = [r for r in recs if r.name == "query.hydrate"]
     takes = [r for r in recs if r.name == "dataset.take_rows"]
-    assert len(hydrate) == 1 and len(takes) == NQ
+    assert len(hydrate) == 1 and len(takes) == 1  # one take over every query's rows
+    assert hydrate[0].attrs["queries"] == NQ
     assert all(r.parent == hydrate[0].id for r in takes)
     assert all(r.attrs["path"] in ("resident", "fragments") for r in takes)
     assert all(r.attrs["fragments"] == 1 for r in takes if r.attrs["path"] == "fragments")
@@ -206,11 +207,13 @@ def test_counter_deltas_match_the_calls(indexed):
     with pytest.raises(TypeError):
         totals["lancedb.queries"] = 1.0  # a read-only view
     q0, f0 = totals["lancedb.queries"], totals["lancedb.hydrate.fragment_reads"]
+    t0 = totals["lancedb.hydrate.takes"]
     _search(tbl, x[:NQ])
-    # one query count a call; one fragment read a query (one fragment, no
-    # resident copy before the eighth hydration of a projection)
+    # one query count a call; one take and one fragment read a call (one
+    # fragment, no resident copy before a projection's eighth query)
     assert totals["lancedb.queries"] - q0 == 1
-    assert totals["lancedb.hydrate.fragment_reads"] - f0 == NQ
+    assert totals["lancedb.hydrate.takes"] - t0 == 1
+    assert totals["lancedb.hydrate.fragment_reads"] - f0 == 1
     h0 = totals["lancedb.h2d_bytes"]
     _search(tbl, x[:NQ])
     assert totals["lancedb.h2d_bytes"] == h0  # a CPU table copies nothing to a device
