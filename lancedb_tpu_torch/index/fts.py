@@ -11,6 +11,10 @@ card earns its keep on the vector side of hybrid queries).
 BM25: idf(t) = ln(1 + (N − df + ½)/(df + ½)),
       score = Σ_t idf · tf·(k1+1)/(tf + k1·(1 − b + b·dl/avgdl)),
       k1 = 1.2, b = 0.75 (lance defaults).
+
+A query's scoring is the span ``fts.score`` (``path``: the scorer that
+ran); each query counts ``lancedb.fts.queries`` and adds the summed df of
+its distinct terms to ``lancedb.fts.postings`` (metrics.py).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import numpy as np
 import pyarrow as pa
 
 from ..errors import InvalidInputError
+from ..metrics import recorder, span
 from ..native import (
     bm25_and_topk_native,
     bm25_impact2_topk_native,
@@ -1013,36 +1018,46 @@ def execute_fts_query(
     )
     use_phrase = isinstance(node, PhraseQuery) and filter is None
     native_hits = None
-    if use_pruned:
-        col = node.column or fts.default_column()
-        col_ix = fts._col(col)
-        if col_ix.num_docs >= 65536:
+    with span("fts.score") as sc:
+        if use_pruned:
+            col = node.column or fts.default_column()
+            col_ix = fts._col(col)
+            if col_ix.num_docs >= 65536:
+                dead_mask = _dead_doc_mask(ds, fts_meta, col_ix)
+                native_hits = col_ix.topk_match_native(node.query, k + offset, dead_mask)
+                path = "native_or"
+                if native_hits is None:
+                    scores = col_ix.score_match_topk(node.query, k + offset)
+                    path = "maxscore"
+            else:
+                use_pruned = False
+        elif use_and:
+            col = node.column or fts.default_column()
+            col_ix = fts._col(col)
             dead_mask = _dead_doc_mask(ds, fts_meta, col_ix)
-            native_hits = col_ix.topk_match_native(node.query, k + offset, dead_mask)
-            if native_hits is None:
-                scores = col_ix.score_match_topk(node.query, k + offset)
-        else:
-            use_pruned = False
-    elif use_and:
-        col = node.column or fts.default_column()
-        col_ix = fts._col(col)
-        dead_mask = _dead_doc_mask(ds, fts_meta, col_ix)
-        native_hits = col_ix.topk_and_native(node.query, k + offset, dead_mask)
-        use_pruned = native_hits is not None
-    elif use_phrase:
-        col = node.column or fts.default_column()
-        col_ix = fts._col(col)
-        if col_ix.pos_offsets is None:
-            raise InvalidInputError(
-                "phrase queries need an FTS index built with with_position=True"
+            native_hits = col_ix.topk_and_native(node.query, k + offset, dead_mask)
+            use_pruned = native_hits is not None
+            path = "native_and"
+        elif use_phrase:
+            col = node.column or fts.default_column()
+            col_ix = fts._col(col)
+            if col_ix.pos_offsets is None:
+                raise InvalidInputError(
+                    "phrase queries need an FTS index built with with_position=True"
+                )
+            dead_mask = _dead_doc_mask(ds, fts_meta, col_ix)
+            native_hits = col_ix.topk_phrase_native(
+                node.query, k + offset, slop=node.slop, dead=dead_mask
             )
-        dead_mask = _dead_doc_mask(ds, fts_meta, col_ix)
-        native_hits = col_ix.topk_phrase_native(
-            node.query, k + offset, slop=node.slop, dead=dead_mask
-        )
-        use_pruned = native_hits is not None
-    if not use_pruned:
-        scores, col_ix = fts.evaluate(node)
+            use_pruned = native_hits is not None
+            path = "native_phrase"
+        if not use_pruned:
+            scores, col_ix = fts.evaluate(node)
+            path = "evaluate"
+        sc.set(path=path)
+    rec = recorder()
+    rec.increment_counter("lancedb.fts.queries")
+    rec.increment_counter("lancedb.fts.postings", float(_query_postings(fts, node)))
 
     if native_hits is not None:
         # the native DAAT scorer already skipped dead docs and returned
@@ -1094,6 +1109,16 @@ def execute_fts_query(
         mask = evaluate_predicate_mask(data, filter)
         data = data.filter(pa.array(mask))
     return data
+
+
+def _query_postings(fts, node) -> int:
+    """The summed df of a match or phrase query's distinct terms, the
+    postings its scorer may visit (0 for the other query nodes)."""
+    if not isinstance(node, (MatchQuery, PhraseQuery)):
+        return 0
+    ix = fts._col(node.column or fts.default_column())
+    tids = {ix.vocab.get(t) for t in ix.tokenizer.tokenize(node.query)} - {None}
+    return int(np.asarray(ix.df)[sorted(tids)].sum()) if tids else 0
 
 
 def _dead_doc_mask(ds, fts_meta, col_ix) -> np.ndarray | None:

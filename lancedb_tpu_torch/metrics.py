@@ -12,8 +12,10 @@ request counts/bytes) and query/index counters through this module:
 the search and build paths, labelled ``memory`` pinned / pageable),
 ``lancedb.hydrate.takes`` (the takes a search's hydration makes: one a
 call) and ``lancedb.hydrate.fragment_reads`` (the fragment reads of a
-hydration that misses the resident copy). ``counter_totals`` reads a
-counter's total over its labels by name.
+hydration that misses the resident copy), ``lancedb.fts.queries`` (one a
+full-text query, each leg of a hybrid call too) and
+``lancedb.fts.postings`` (the summed df of a full-text query's distinct
+terms). ``counter_totals`` reads a counter's total over its labels by name.
 
 ``span(name)`` times one layer of a call. A span is kept while recording
 is on: inside ``tracing()``, or while a ``torch.profiler`` session runs,

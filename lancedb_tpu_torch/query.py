@@ -19,7 +19,12 @@ Port of the reference's query.py:
 Full-text search runs the BM25 index on the host (index/fts.py). A hybrid
 search runs its full-text legs on host threads while the calling thread
 runs the vector legs (every CUDA call stays on it), then fuses each pair
-with a reranker (RRF by default).
+with a reranker (RRF by default). A hybrid call is the span
+``query.hybrid`` (``queries``: its pairs) over its vector legs'
+``query.vector``, one ``hybrid.fts_leg`` a full-text leg (on whichever
+thread runs it: the legs start in a copy of the caller's context),
+``hybrid.fts_wait`` (the caller's wait for the full-text legs once its
+vector legs returned) and ``hybrid.fuse`` (the fusion of each pair).
 
 A multivector column is searched by late interaction
 (index/multivector.py). A plain scan (``query()``, ``search(None)``)
@@ -41,6 +46,7 @@ newest write winning; searches refuse it, as the reference's do.
 
 from __future__ import annotations
 
+import contextvars
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field, replace
@@ -1149,12 +1155,18 @@ class LanceHybridQueryBuilder(LanceQueryBuilder):
 
     def _fts_leg(self, text_query) -> pa.Table:
         """Host only: the BM25 scorers, the prefilter and take_rows (no torch)."""
-        fts = LanceFtsQueryBuilder(self._table, text_query, self._fts_columns)
-        fts._req.filter = self._req.filter
-        fts._req.prefilter = self._req.prefilter
-        fts._req.k = self._req.k
-        fts._req.with_row_id = True
-        return fts.to_arrow()
+        with span("hybrid.fts_leg"):
+            fts = LanceFtsQueryBuilder(self._table, text_query, self._fts_columns)
+            fts._req.filter = self._req.filter
+            fts._req.prefilter = self._req.prefilter
+            fts._req.k = self._req.k
+            fts._req.with_row_id = True
+            return fts.to_arrow()
+
+    def _start_fts_legs(self, ex: ThreadPoolExecutor, texts: list) -> list:
+        """Each text's full-text leg on ``ex``, in a copy of this thread's
+        context, so that its spans are children of the call's."""
+        return [ex.submit(contextvars.copy_context().run, self._fts_leg, t) for t in texts]
 
     def _keep_selected(self, out: pa.Table, extra=()) -> pa.Table:
         if not self._req.with_row_id and ROW_ID_COL in out.column_names:
@@ -1183,37 +1195,43 @@ class LanceHybridQueryBuilder(LanceQueryBuilder):
         vq = self._vector_leg(np.stack(vectors))
         with ThreadPoolExecutor(max_workers=min(8, len(texts)),
                                 thread_name_prefix="hybrid-fts") as ex:
-            fts_futures = [ex.submit(self._fts_leg, t) for t in texts]
+            fts_futures = self._start_fts_legs(ex, texts)
             vector_all = vq.to_arrow()
-            fts_results = [f.result() for f in fts_futures]
+            with span("hybrid.fts_wait"):
+                fts_results = [f.result() for f in fts_futures]
 
-        reranker = self._reranker or RRFReranker()
-        qidx = vector_all.column(QUERY_INDEX_COL).to_numpy(zero_copy_only=False)
-        parts = []
-        for qi, (txt, fts_res) in enumerate(zip(texts, fts_results)):
-            vres = vector_all.filter(pa.array(qidx == qi)).drop_columns([QUERY_INDEX_COL])
-            fused = self._sorted(reranker.rerank_hybrid(str(txt), vres, fts_res).slice(0, k))
-            fused = fused.append_column(
-                QUERY_INDEX_COL, pa.array(np.full(len(fused), qi, dtype=np.int32))
-            )
-            parts.append(fused)
-        out = pa.concat_tables(parts, promote_options="permissive")
-        return self._keep_selected(out, (QUERY_INDEX_COL,))
+        with span("hybrid.fuse"):
+            reranker = self._reranker or RRFReranker()
+            qidx = vector_all.column(QUERY_INDEX_COL).to_numpy(zero_copy_only=False)
+            parts = []
+            for qi, (txt, fts_res) in enumerate(zip(texts, fts_results)):
+                vres = vector_all.filter(pa.array(qidx == qi)).drop_columns([QUERY_INDEX_COL])
+                fused = self._sorted(reranker.rerank_hybrid(str(txt), vres, fts_res).slice(0, k))
+                fused = fused.append_column(
+                    QUERY_INDEX_COL, pa.array(np.full(len(fused), qi, dtype=np.int32))
+                )
+                parts.append(fused)
+            out = pa.concat_tables(parts, promote_options="permissive")
+            return self._keep_selected(out, (QUERY_INDEX_COL,))
 
     def to_arrow(self) -> pa.Table:
         from .rerankers.rrf import RRFReranker
 
         self._check_scan_only_flags()
-        if self._extra_queries:
-            return self._to_arrow_batched()
-        if self._vector is None:
-            self._vector = self._table._embed_query(self._text_query, self._vector_column)
-        vq = self._vector_leg(self._vector)
-        # the FTS leg (host) overlaps the vector leg's device work
-        with ThreadPoolExecutor(max_workers=1, thread_name_prefix="hybrid-fts") as ex:
-            fts_future = ex.submit(self._fts_leg, self._text_query)
-            vector_results = vq.to_arrow()
-            fts_results = fts_future.result()
-        reranker = self._reranker or RRFReranker()
-        fused = reranker.rerank_hybrid(str(self._text_query), vector_results, fts_results)
-        return self._sorted(self._keep_selected(fused.slice(0, self._req.k)))
+        with span("query.hybrid", queries=1 + len(self._extra_queries)):
+            if self._extra_queries:
+                return self._to_arrow_batched()
+            if self._vector is None:
+                self._vector = self._table._embed_query(self._text_query, self._vector_column)
+            vq = self._vector_leg(self._vector)
+            # the FTS leg (host) overlaps the vector leg's device work
+            with ThreadPoolExecutor(max_workers=1, thread_name_prefix="hybrid-fts") as ex:
+                (fts_future,) = self._start_fts_legs(ex, [self._text_query])
+                vector_results = vq.to_arrow()
+                with span("hybrid.fts_wait"):
+                    fts_results = fts_future.result()
+            with span("hybrid.fuse"):
+                reranker = self._reranker or RRFReranker()
+                fused = reranker.rerank_hybrid(str(self._text_query), vector_results,
+                                               fts_results)
+                return self._sorted(self._keep_selected(fused.slice(0, self._req.k)))

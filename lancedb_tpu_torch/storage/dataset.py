@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 import time
 from dataclasses import dataclass, replace
 from typing import Callable, Iterator
@@ -115,6 +116,8 @@ class Dataset:
         # (sorted_rowids, rowid-sorted table) or "skip" (too large)
         self._hydration_cache: dict[tuple, object] = {}
         self._hydration_hits: dict[tuple, int] = {}
+        # one thread at a time reads a projection for the resident copy
+        self._hydration_build = threading.Lock()
 
     # ------------------------------------------------------------ basic
 
@@ -699,7 +702,9 @@ class Dataset:
         per query; the per-fragment/per-batch take path costs several
         Arrow kernel calls per batch of rows while this is ONE pc.take.
         Bounded by LANCEDB_TPU_HYDRATION_CACHE_BYTES (4e9); larger
-        projections are marked "skip" and use the slow path."""
+        projections are marked "skip" and use the slow path. One thread
+        reads the projection; takes on other threads meanwhile (a hybrid
+        call's full-text legs) use the slow path instead of reading it too."""
         key = (self.version, self.branch, tuple(columns) if columns else None)
         ent = self._hydration_cache.get(key)
         if ent == "skip":
@@ -708,23 +713,31 @@ class Dataset:
             return ent
         hits = self._hydration_hits.get(key, 0) + lookups
         self._hydration_hits[key] = hits
-        if hits < 8:
+        if hits < 8 or not self._hydration_build.acquire(blocking=False):
             return None
+        try:
+            ent = self._hydration_cache.get(key)
+            if ent is None:
+                ent = self._resident_copy(columns)
+                # one live version per dataset handle: drop stale entries
+                self._hydration_cache = {
+                    k: v for k, v in self._hydration_cache.items() if k[0] == self.version
+                }
+                self._hydration_cache[key] = ent
+        finally:
+            self._hydration_build.release()
+        return None if ent == "skip" else ent
+
+    def _resident_copy(self, columns: list[str] | None):
+        """(sorted row ids, the projection in their order), or "skip"
+        where the projection passes the cap."""
         tbl = self.to_table(columns=columns, with_row_id=True)
         cap = float(os.environ.get("LANCEDB_TPU_HYDRATION_CACHE_BYTES", 4e9))
         if tbl.nbytes > cap:
-            ent = "skip"
-        else:
-            rid = tbl.column(ROW_ID_COL).to_numpy().astype(np.uint64)
-            order = np.argsort(rid)
-            sorted_tbl = tbl.drop_columns([ROW_ID_COL]).take(pa.array(order)).combine_chunks()
-            ent = (rid[order], sorted_tbl)
-        # one live version per dataset handle: drop stale entries
-        self._hydration_cache = {
-            k: v for k, v in self._hydration_cache.items() if k[0] == self.version
-        }
-        self._hydration_cache[key] = ent
-        return None if ent == "skip" else ent
+            return "skip"
+        rid = tbl.column(ROW_ID_COL).to_numpy().astype(np.uint64)
+        order = np.argsort(rid)
+        return rid[order], tbl.drop_columns([ROW_ID_COL]).take(pa.array(order)).combine_chunks()
 
     def take_rows(self, row_ids: np.ndarray, columns: list[str] | None = None, *,
                   _lookups: int = 1) -> pa.Table:

@@ -12,6 +12,8 @@ take and one ``lancedb.hydrate.takes``, and decides the resident copy in
 its first call of 8 or more queries.
 """
 
+import threading
+
 import numpy as np
 import pyarrow as pa
 import pytest
@@ -217,3 +219,47 @@ def test_the_first_call_of_8_queries_decides_the_resident_copy(table_path, monke
     else:
         rid_sorted, tbl = ent
         assert tbl.num_rows == len(rid_sorted) == N - 1
+
+
+def test_takes_that_meet_the_resident_copy_being_read_do_not_read_it_too(table_path,
+                                                                         monkeypatch):
+    """A hybrid call's full-text legs take rows on 8 threads at once. The
+    take that crosses the 8th lookup reads the projection for the resident
+    copy; takes on other threads meanwhile read the fragments and return,
+    and no second thread reads the projection (at 1M x 1536 one read is
+    6.4 GB)."""
+    ds = _port(table_path)._dataset
+    reads, started, release = [], threading.Event(), threading.Event()
+    real = ds._resident_copy
+
+    def slow_copy(columns):
+        reads.append(threading.get_ident())
+        started.set()
+        assert release.wait(30)
+        return real(columns)
+
+    monkeypatch.setattr(ds, "_resident_copy", slow_copy)
+    rid = ds.to_table(columns=["id"], with_row_id=True).column(ROW_ID_COL).to_numpy()
+    rid = rid.astype(np.uint64)
+    want = [np.asarray(ds.take_rows(rid[i:i + 10], columns=["id"])["id"]) for i in range(0, 70, 10)]
+    assert not reads  # 7 lookups: not yet
+    first = threading.Thread(target=ds.take_rows, args=(rid[:10], ["id"]))
+    first.start()
+    assert started.wait(30)
+    got = {}
+
+    def take(i):
+        got[i] = np.asarray(ds.take_rows(rid[i * 10:i * 10 + 10], columns=["id"])["id"])
+
+    others = [threading.Thread(target=take, args=(i,)) for i in range(7)]
+    for th in others:
+        th.start()
+    for th in others:
+        th.join(5)
+    assert all(not th.is_alive() for th in others)  # none waited for the read
+    release.set()
+    first.join(30)
+    assert len(reads) == 1
+    assert all(np.array_equal(got[i], want[i]) for i in range(7))
+    key = (ds.version, ds.branch, ("id",))
+    assert ds._hydration_cache[key][1].num_rows == N - 1

@@ -103,6 +103,85 @@ def test_build_span_tree():
     assert names[-1] == "table.commit"
 
 
+
+HYBRID_WORDS = [f"w{i}" for i in range(40)] + ["the", "of", "and"]
+
+
+@pytest.fixture(scope="module")
+def hybrid_table():
+    """A table with a passage a row, its vector index and its full-text index."""
+    rows, x = _rows()
+    rng = np.random.default_rng(5)
+    passages = [" ".join(rng.choice(HYBRID_WORDS, 12)) for _ in range(N)]
+    rows = rows.add_column(2, "text", pa.array(passages))
+    db = lancedb_tpu_torch.connect(f"memory://tracing-{uuid.uuid4().hex}", device="cpu")
+    tbl = db.create_table("t", rows)
+    _build(tbl)
+    tbl.create_fts_index("text")
+    texts = [f"w{i} w{i + 7} the w{i}" for i in range(8)]
+    return tbl, x, texts
+
+
+def _hybrid(tbl, x, texts):
+    b = tbl.search((x[0], texts[0]), query_type="hybrid")
+    for v, t in zip(x[1:len(texts)], texts[1:]):
+        b = b.add_query(v, t)
+    return b.nprobes(4).refine_factor(4).limit(5).to_arrow()
+
+
+def _summed_df(tbl, texts) -> int:
+    meta = next(ix for ix in tbl._dataset.manifest.indices if ix.index_type == "FTS")
+    col = tbl._get_fts_index(meta)._col("text")
+    total = 0
+    for t in texts:
+        tids = {col.vocab[w] for w in col.tokenizer.tokenize(t) if w in col.vocab}
+        total += int(sum(col.df[i] for i in tids))
+    return total
+
+
+@pytest.mark.parametrize("pairs", [8, 1], ids=["batched", "single"])
+def test_hybrid_span_tree(hybrid_table, pairs):
+    tbl, x, texts = hybrid_table
+    texts = texts[:pairs]
+    metrics.span_records(clear=True)
+    before = {n: metrics.counter_totals[n] for n in ("lancedb.fts.queries",
+                                                     "lancedb.fts.postings")}
+    with metrics.tracing():
+        out = _hybrid(tbl, x, texts)
+    recs = [r for r in metrics.span_records(clear=True) if r.name != "gc"]
+    root = next(r for r in recs if r.name == "query.hybrid")
+    assert root.parent is None and root.attrs["queries"] == pairs
+    by_id = {r.id: r for r in recs}
+    for r in recs:
+        assert r.request == root.id  # one request id a call, whichever thread
+        if r.parent is not None:
+            p = by_id[r.parent]
+            assert p.t0 <= r.t0 <= r.t1 <= p.t1
+    children = collections.Counter(r.name for r in recs if r.parent == root.id)
+    assert children == {"query.vector": 1, "hybrid.fts_leg": pairs, "hybrid.fts_wait": 1,
+                        "hybrid.fuse": 1}
+    legs = [r for r in recs if r.name == "hybrid.fts_leg"]
+    assert all(r.thread != root.thread for r in legs)  # the legs run on the pool's threads
+    for leg in legs:
+        under = collections.Counter(r.name for r in recs if r.parent == leg.id)
+        assert under == {"fts.score": 1, "dataset.take_rows": 1}
+    assert {r.attrs["path"] for r in recs if r.name == "fts.score"} == {"evaluate"}
+    vector = next(r for r in recs if r.name == "query.vector")
+    assert {r.name for r in recs if r.parent == vector.id} >= {"searcher.search",
+                                                               "query.hydrate"}
+    assert out.num_rows > 0
+    assert metrics.counter_totals["lancedb.fts.queries"] - before["lancedb.fts.queries"] == pairs
+    assert (metrics.counter_totals["lancedb.fts.postings"] - before["lancedb.fts.postings"]
+            == _summed_df(tbl, texts))
+
+
+def test_a_hybrid_call_keeps_nothing_with_recording_off(hybrid_table):
+    tbl, x, texts = hybrid_table
+    metrics.span_records(clear=True)
+    assert not metrics.recording()
+    _hybrid(tbl, x, texts)
+    assert metrics.span_records() == []
+
 def test_nothing_is_kept_with_recording_off():
     tbl, x = _table()
     metrics.span_records(clear=True)
@@ -344,9 +423,49 @@ def test_build_span_readers(monkeypatch):
     assert READERS["idle_unnamed_pct.build"].read(t) == pytest.approx(32.0)
 
 
+HYBRID_READERS = ["vector_leg_ms.hybrid", "fts_wait_ms.hybrid", "fts_leg_ms.hybrid",
+                  "fts_score_ms.hybrid", "fuse_ms.hybrid", "takes_per_call.hybrid",
+                  "idle_unnamed_pct.hybrid"]
 NEW_READERS = ["plan_ms.batch", "finish_ms.batch", "idle_unnamed_pct.batch",
                "slot_penalty_ms.filtered", "idle_unnamed_pct.filtered", "build_host_s",
-               "idle_unnamed_pct.build"]
+               "idle_unnamed_pct.build"] + HYBRID_READERS
+
+
+def _hybrid_records():
+    """One hybrid call of two pairs in a 1 s window (ms): its root, the
+    vector leg (with its one take), two full-text legs on another thread
+    (each a scorer and a take), the wait and the fusion."""
+    return [_rec("query.hybrid", 100, 700, 1),
+            _rec("query.vector", 100, 300, 2, 1, 1),
+            _rec("dataset.take_rows", 200, 280, 3, 2, 1),
+            _rec("hybrid.fts_leg", 100, 350, 4, 1, 1),
+            _rec("fts.score", 100, 150, 5, 4, 1),
+            _rec("dataset.take_rows", 150, 340, 6, 4, 1),
+            _rec("hybrid.fts_leg", 350, 500, 7, 1, 1),
+            _rec("fts.score", 350, 380, 8, 7, 1),
+            _rec("dataset.take_rows", 380, 490, 9, 7, 1),
+            _rec("hybrid.fts_wait", 300, 500, 10, 1, 1),
+            _rec("hybrid.fuse", 500, 700, 11, 1, 1)]
+
+
+def test_hybrid_span_readers(monkeypatch):
+    monkeypatch.setattr(metrics, "span_records", _hybrid_records)
+    t = Trace((0, 1000 * MS), calls=1, builds=0, queries=2,
+              events=[DeviceEvent("k", 0, 50 * MS), DeviceEvent("k", 200 * MS, 250 * MS)],
+              counters={"spans_dropped": 0.0, "fts_postings": 12345.0})
+    assert READERS["vector_leg_ms.hybrid"].read(t) == pytest.approx(200.0)
+    assert READERS["fts_wait_ms.hybrid"].read(t) == pytest.approx(200.0)
+    assert READERS["fts_leg_ms.hybrid"].read(t) == pytest.approx(400.0)  # thread time
+    assert READERS["fts_score_ms.hybrid"].read(t) == pytest.approx(80.0)
+    assert READERS["fuse_ms.hybrid"].read(t) == pytest.approx(200.0)
+    assert READERS["takes_per_call.hybrid"].read(t) == pytest.approx(3.0)
+    assert READERS["postings_per_call.hybrid"].read(t) == pytest.approx(12345.0)
+    # idle 900 ms; named (a span below the root open) 100-700 ms, of which
+    # 200-250 is busy: 900 - 550 = 350 ms unnamed
+    assert READERS["idle_unnamed_pct.hybrid"].read(t) == pytest.approx(35.0)
+    # a program that counts no postings (before the counter existed) reads None
+    t.counters["fts_postings"] = 0.0
+    assert READERS["postings_per_call.hybrid"].read(t) is None
 
 
 @pytest.mark.parametrize("name", NEW_READERS)
@@ -358,7 +477,8 @@ def test_span_readers_read_nothing_when_records_were_dropped(name, monkeypatch):
 
 
 @pytest.mark.parametrize("name", NEW_READERS + ["fragment_reads_per_call.filtered",
-                                                "h2d_mib_per_call.filtered"])
+                                                "h2d_mib_per_call.filtered",
+                                                "postings_per_call.hybrid"])
 def test_readers_read_nothing_from_a_program_without_spans(name, monkeypatch):
     """A program without the span ring or the counter view (the parent of
     this instrumentation): the tracer's counters read NaN, the readers None."""
